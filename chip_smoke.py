@@ -5,7 +5,8 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from
-     src/repro_torch/kernels/csrc with nvcc (sm_90a) and time the build;
+     src/repro_torch/kernels/csrc with nvcc (sm_90a), one nvcc per source,
+     all started together, and time each build;
   2. each kernel against its plain PyTorch version at the serving shape
      (E=16, C=160, D=512, F=1408) and a ragged one (C=37, F=1400), in bf16
      and fp32, with the stated tolerance; kernel, plain-version and library
@@ -17,7 +18,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      16-96 tokens, 32 greedy tokens each; the kernels' launch counts from
      this run must be > 0;
   5. a short torch.profiler trace of serve steps: device busy share, kernel
-     launches per step, the kernels that take the most device time.
+     launches per step, the kernels that take the most device time;
+  6. the BIP-ADMM dual kernel (K3) against its plain version at
+     (n, m, k) = (8192, 16, 4), (1000, 64, 8) and a ragged n, with the
+     default and with refined per-expert bounds (p and counts bit-equal),
+     the full dual update against the plain-version loop (bit-equal) and
+     the exact sort-based dual (within 2/512 + 5e-3); its time and bound;
+  7. the expert-FFN backward through K2 at the training shape (E=16,
+     C=2560, D=512, F=1408), bf16 and fp32: each backward product against
+     its plain version on the same inputs, and the gradients of all four
+     operands against the same backward run on the plain versions; the
+     time of each product;
+  8. train minimind-moe-16e at full width (seeded random weights, synthetic
+     data, batch 16 x 512, bip with T=4, use_kernel=True, AdamW with a
+     linear-warmup cosine schedule) for 20 steps through train_loop: the
+     loss must be finite and fall and AvgMaxVio stay <= 1.0; the K1/K2/K3
+     launches per step must be exactly 8 / 8+64 / 64;
+  9. a torch.profiler trace of two training steps: device busy share,
+     launches per step, the top kernels.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
 that outlives it (nvcc and nvidia-smi run to completion).
@@ -26,9 +44,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -38,6 +58,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 SMOKE = (16, 160, 512, 1408)  # (E, C, D, F): minimind-16e at 16 slots x 32 tokens
 RAGGED = (16, 37, 512, 1400)
+TRAIN = (16, 2560, 512, 1408)  # (E, C, D, F): minimind-16e training, 16 x 512 tokens
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 512, 20
+K3_CASES = ((8192, 16, 4), (1000, 64, 8), (8191, 16, 4))  # (n, m, k); 8191: ragged
+N_BINS = 512
+DUAL_BOUND = 2.0 / 512 + 5e-3  # the reference's histogram-resolution bound
+# end-to-end bf16 gradients: each product rounds once to bf16, and the
+# one-rounding differences of the intermediates (g, u, dh, dg, du) carry on
+GRAD_REL_BF16 = 2.0**-6
 TOL = {  # |kernel - plain| <= rtol*|plain| + atol_frac*max|plain|
     # bf16 output: the fp32 sums differ in order, so one rounding to bf16
     # (2^-7 relative) may land on the other neighbour
@@ -120,6 +148,26 @@ def check_kernels(torch, moe_gemm, shape, dtype_name, gen):
     return out
 
 
+def summarize_trace(torch, prof, label, n_steps, wall_us):
+    """Device busy share of the wall time, kernel launches per step and the
+    kernels with the most device time, from a torch.profiler trace."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print(f"[{label}] the profiler recorded no device activity: busy share not measured")
+        return
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    print(f"[{label}] {n_steps} steps: wall {wall_us / 1e3:.2f} ms, "
+          f"device busy {busy_us / 1e3:.2f} ms = {100 * busy_us / wall_us:.1f}% "
+          f"(idle {100 - 100 * busy_us / wall_us:.1f}%), "
+          f"{len(kernels) / max(n_steps, 1):.0f} kernel launches per step")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"  {t / busy_us:6.1%} of device time  {t / 1e3:8.3f} ms  {n:6d} launches  {name[:90]}")
+
+
 def profile_steps(torch, eng, vocab, rng, n_requests=16, prompt=32, gen=8):
     """Trace a short serve run (one prefill step, then decode steps) with
     torch.profiler: device busy share of the wall time, kernel launches per
@@ -137,21 +185,183 @@ def profile_steps(torch, eng, vocab, rng, n_requests=16, prompt=32, gen=8):
             eng.step()
             n_steps += 1
         wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        print("[profile] the profiler recorded no device activity: busy share not measured")
-        return
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    print(f"[profile] {n_steps} decode steps ({n_requests} slots busy): wall {wall_us / 1e3:.2f} ms, "
-          f"device busy {busy_us / 1e3:.2f} ms = {100 * busy_us / wall_us:.1f}% "
-          f"(idle {100 - 100 * busy_us / wall_us:.1f}%), "
-          f"{len(kernels) / max(n_steps, 1):.0f} kernel launches per step")
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"  {t / busy_us:6.1%} of device time  {t / 1e3:8.3f} ms  {n:6d} launches  {name[:90]}")
+    summarize_trace(torch, prof, f"profile: decode, {n_requests} slots busy", n_steps, wall_us)
+
+
+def kernel_device_us(torch, fn, name_part, reps=50):
+    """Mean device time of the one kernel (name holding `name_part`) that
+    each call of fn launches, from a torch.profiler trace of `reps` calls:
+    the kernel alone, without the host time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name_part in e.name]
+    if len(ev) != reps:
+        raise AssertionError(f"profiler saw {len(ev)} launches of {name_part}, expected {reps}")
+    return sum(e.time_range.elapsed_us() for e in ev) / reps
+
+
+def k3_bound(n, m, k, n_bins):
+    """Least time for one ADMM iteration: read s, q, lo, hi and write p and
+    the (m, n_bins) fp32 counts once; (k+1) compares per score for p and
+    ceil(log2(n_bins+1)) per score to place it among the edges (fp32)."""
+    t_bytes = 4 * (n * m + 3 * m + n + m * n_bins) / PEAK_BYTES
+    t_ops = n * m * (k + 1 + math.ceil(math.log2(n_bins + 1))) / PEAK_FLOPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_k3(torch, bip_admm, kernel_ops, ref_bip, gen):
+    """K3 against its plain version at K3_CASES, default and refined bounds
+    (p and counts bit-equal), and the full dual update against the
+    plain-version loop (bit-equal) and the exact sort-based dual."""
+    from repro_torch.core.ref_bip import expert_kth_index
+
+    plain_iteration = lambda s_, q_, *, top_k, n_bins=N_BINS, lo=None, hi=None: (  # noqa: E731
+        bip_admm.bip_admm_iteration_plain(
+            s_, q_, *bip_admm._bounds(lo, hi, s_.shape[1], s_.device), top_k=top_k, n_bins=n_bins))
+    max_err = 0.0
+    for n, m, k in K3_CASES:
+        logits = torch.randn(n, m, device="cuda", generator=gen) + 1.5 * torch.linspace(2, -2, m, device="cuda")
+        s = torch.softmax(logits, dim=-1)
+        q = torch.rand(m, device="cuda", generator=gen) * 0.3
+        p, cnt = bip_admm.bip_admm_iteration(s, q, top_k=k, n_bins=N_BINS)
+        pp, cp = plain_iteration(s, q, top_k=k)
+        ok = torch.equal(p, pp) and torch.equal(cnt, cp)
+        rank = max(expert_kth_index(n, k, m), 0)
+        full = torch.full((m,), 1.0, device="cuda")
+        lo, hi, _ = bip_admm.locate_bin(cnt, rank, N_BINS, -full, full)
+        pr, cr = bip_admm.bip_admm_iteration(s, q, top_k=k, n_bins=N_BINS, lo=lo, hi=hi)
+        ppr, cpr = plain_iteration(s, q, top_k=k, lo=lo, hi=hi)
+        ok_refined = torch.equal(pr, ppr) and torch.equal(cr, cpr)
+        for got, want in ((p, pp), (cnt, cp), (pr, ppr), (cr, cpr)):
+            max_err = max(max_err, float((got - want).abs().max()))
+        q0 = torch.zeros(m, device="cuda")
+        q_kernel = kernel_ops.bip_dual_update(s, q0, top_k=k, n_iters=4)
+        saved = bip_admm.bip_admm_iteration
+        bip_admm.bip_admm_iteration = plain_iteration
+        try:
+            q_plain = kernel_ops.bip_dual_update(s, q0, top_k=k, n_iters=4)
+        finally:
+            bip_admm.bip_admm_iteration = saved
+        q_exact, _ = ref_bip.bip_dual_update(s, q0, top_k=k, n_iters=4)
+        dual_err = float((q_kernel - q_exact).abs().max())
+        ok_dual = torch.equal(q_kernel, q_plain) and dual_err <= DUAL_BOUND
+        print(f"  bip_admm_iteration n,m,k=({n},{m},{k}): p and counts bit-equal: default bounds {ok}, "
+              f"refined bounds {ok_refined}; dual q (T=4) bit-equal to the plain loop "
+              f"{torch.equal(q_kernel, q_plain)}, max |q - exact dual| {dual_err:.3e} "
+              f"(bound {DUAL_BOUND:.3e}) {'ok' if ok and ok_refined and ok_dual else 'FAIL'}")
+        if not (ok and ok_refined and ok_dual):
+            raise AssertionError(f"K3 disagrees with its plain version at {(n, m, k)}")
+    n, m, k = K3_CASES[0]
+    s = torch.softmax(torch.randn(n, m, device="cuda", generator=gen), dim=-1)
+    q = torch.rand(m, device="cuda", generator=gen) * 0.3
+    lo, hi = -torch.ones(m, device="cuda"), torch.ones(m, device="cuda")
+    kernel_us = kernel_device_us(
+        torch, lambda: bip_admm.bip_admm_iteration(s, q, top_k=k), "bip_admm_iteration_kernel")
+    wrapper_ms = time_ms(torch, lambda: bip_admm.bip_admm_iteration(s, q, top_k=k), [()], reps=50)
+    plain_ms = time_ms(
+        torch, lambda: bip_admm.bip_admm_iteration_plain(s, q, lo, hi, top_k=k, n_bins=N_BINS),
+        [()], reps=20)
+    b_ms, b_by = k3_bound(n, m, k, N_BINS)
+    print(f"  bip_admm_iteration n,m,k=({n},{m},{k}), {N_BINS} bins: kernel_ms {kernel_us / 1e3:.4f} "
+          f"(device time, profiler) wrapper_ms {wrapper_ms:.4f} (events around the wrapper: edges, "
+          f"launch, suffix sum) plain_ms {plain_ms:.4f} bound_ms {b_ms:.6f} ({b_by}) "
+          f"library_ms none (no single PyTorch call computes p and the counts)")
+    return kernel_us / 1e3, plain_ms, b_ms, b_by, max_err
+
+
+def check_ffn_backward(torch, moe_gemm, kernel_ops, dtype_name, gen):
+    """The expert-FFN backward through K2 at the training shape: each
+    product against its plain version on the same inputs (one bf16
+    rounding, as phase 2 holds K1/K2) and timed; then the gradients of all four operands against
+    the same backward run on the plain versions."""
+    dt = getattr(torch, dtype_name)
+    e, c, d, f = TRAIN
+    x = torch.randn(e, c, d, device="cuda", generator=gen).to(dt)
+    wg = (torch.randn(e, d, f, device="cuda", generator=gen) / d**0.5).to(dt)
+    wu = (torch.randn(e, d, f, device="cuda", generator=gen) / d**0.5).to(dt)
+    wd = (torch.randn(e, f, d, device="cuda", generator=gen) / f**0.5).to(dt)
+    dy = (torch.randn(e, c, d, device="cuda", generator=gen) / c**0.5).to(dt)
+    t = lambda a: a.transpose(-1, -2)  # noqa: E731
+    mm_plain = moe_gemm.grouped_matmul_plain
+    g, u = mm_plain(x, wg), mm_plain(x, wu)
+    gf, uf = g.float(), u.float()
+    sg = torch.sigmoid(gf)
+    h = (gf * sg * uf).to(dt)
+    dh = mm_plain(dy, t(wd))
+    dg = (dh.float() * uf * (sg * (1.0 + gf * (1.0 - sg)))).to(dt)
+    du = (dh.float() * gf * sg).to(dt)
+    products = {  # name: (A, B) of the product A @ B
+        "g = x wg": (x, wg), "u = x wu": (x, wu), "dh = dy wd^T": (dy, t(wd)),
+        "dwd = h^T dy": (t(h), dy), "dx_g = dg wg^T": (dg, t(wg)), "dx_u = du wu^T": (du, t(wu)),
+        "dwg = x^T dg": (t(x), dg), "dwu = x^T du": (t(x), du),
+    }
+    rtol, atol_frac = TOL[dtype_name]
+    times = {}
+    for name, (a, b) in products.items():
+        got, want = moe_gemm.grouped_matmul(a, b).float(), mm_plain(a, b).float()
+        err = (got - want).abs()
+        if not bool((err <= rtol * want.abs() + atol_frac * want.abs().max()).all()):
+            raise AssertionError(f"K2 backward product {name} {dtype_name} disagrees with its plain version")
+        k_ms = time_ms(torch, moe_gemm.grouped_matmul, [(a, b)], reps=3)
+        p_ms = time_ms(torch, mm_plain, [(a, b)], reps=3)
+        lib_ms = time_ms(torch, torch.bmm, [(a, b)], reps=3)
+        m_, k_, n_ = a.shape[1], a.shape[2], b.shape[2]
+        b_ms, b_by = bound("grouped_matmul", (e, m_, n_, k_), dtype_name)
+        times[name] = (k_ms, p_ms, lib_ms, b_ms, b_by)
+        print(f"  K2 {name:16s} {dtype_name:8s} (E,M,K,N)=({e},{m_},{k_},{n_}) A {'T' if a.stride(-1) != 1 else 'N'} "
+              f"B {'T' if b.stride(-1) != 1 else 'N'}: max_abs_err {float(err.max()):.3e} "
+              f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms (torch.bmm) {lib_ms:.4f} "
+              f"bound_ms {b_ms:.4f} ({b_by})")
+
+    def grads(ffn_in, mm):
+        saved = moe_gemm.grouped_gated_ffn_in, moe_gemm.grouped_matmul
+        moe_gemm.grouped_gated_ffn_in, moe_gemm.grouped_matmul = ffn_in, mm
+        try:
+            leaves = [a.detach().clone().requires_grad_(True) for a in (x, wg, wu, wd)]
+            kernel_ops.expert_ffn(*leaves).backward(dy)
+            return [a.grad.float() for a in leaves]
+        finally:
+            moe_gemm.grouped_gated_ffn_in, moe_gemm.grouped_matmul = saved
+
+    got = grads(moe_gemm.grouped_gated_ffn_in, moe_gemm.grouped_matmul)
+    want = grads(moe_gemm.grouped_gated_ffn_in_plain, moe_gemm.grouped_matmul_plain)
+    for name, gk, gp in zip(("x", "w_gate", "w_up", "w_down"), got, want):
+        if not bool(torch.isfinite(gk).all()):
+            raise AssertionError(f"expert_ffn backward {dtype_name}: non-finite d{name}")
+        rel = float((gk - gp).norm() / gp.norm())
+        if dtype_name == "float32":
+            ok = bool(((gk - gp).abs() <= 1e-5 * gp.abs() + 1e-6 * gp.abs().max()).all())
+            tol = "elementwise 1e-5*|ref| + 1e-6*max|ref|"
+        else:
+            ok = rel <= GRAD_REL_BF16
+            tol = f"||diff||/||ref|| <= {GRAD_REL_BF16:.3e}"
+        print(f"  expert_ffn grad d{name:6s} {dtype_name:8s}: max_abs_err {float((gk - gp).abs().max()):.3e} "
+              f"rel_err {rel:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"expert_ffn backward {dtype_name}: d{name} disagrees with the plain backward")
+    return times
+
+
+def profile_train_steps(torch, step_fn, state, batches):
+    """Trace two training steps with torch.profiler (after the measured run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            state, mets = step_fn(state, batch)
+        float(mets["loss"])
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    summarize_trace(torch, prof, "profile: training", len(batches), wall_us)
 
 
 def main() -> int:
@@ -163,9 +373,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
-    from repro_torch.kernels import moe_gemm
+    from repro_torch.core import ref_bip
+    from repro_torch.data import SyntheticBatchStream, make_batches
+    from repro_torch.kernels import bip_admm, moe_gemm
+    from repro_torch.kernels import ops as kernel_ops
     from repro_torch.models import Model, moe
+    from repro_torch.optim import from_model_config, linear_warmup_cosine
     from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.training import evaluate_ppl, init_train_state, make_train_step, train_loop
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -173,10 +388,20 @@ def main() -> int:
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     print("fp32 matmuls in full fp32: torch.backends.cuda.matmul.allow_tf32 = False")
 
-    # -- 1. build
+    # -- 1. build: one nvcc per source, started together
+    def timed_build(build):
+        t = time.perf_counter()
+        build()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    moe_gemm.build()
-    print(f"[build] nvcc sm_90a moe_gemm.cu: {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = {name: pool.submit(timed_build, mod.build)
+                   for name, mod in (("moe_gemm.cu", moe_gemm), ("bip_admm.cu", bip_admm))}
+        build_s = {name: f.result() for name, f in futures.items()}
+    print(f"[build] nvcc sm_90a, in parallel: "
+          + ", ".join(f"{n} {t:.2f} s" for n, t in build_s.items())
+          + f"; wall {time.perf_counter() - t0:.2f} s")
 
     # -- 2. kernels against their plain versions, and their times
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -299,19 +524,90 @@ def main() -> int:
     # -- 5. where a serve step's time goes (a short traced run, after the
     # launch counts above were read)
     profile_steps(torch, eng, cfg.vocab_size, rng)
-
     cap = moe.expert_capacity(n_slots * chunk, cfg)
-    shape = (cfg.routing.n_experts, cap, cfg.d_model, cfg.moe_d_ff)
+    serve_shape = (cfg.routing.n_experts, cap, cfg.d_model, cfg.moe_d_ff)
+    del eng, params
+
+    # -- 6. the BIP-ADMM dual kernel (K3) against its plain version
+    print("[K3] kernel vs plain PyTorch version (p and counts must be bit-equal)")
+    k3_ms, k3_plain_ms, k3_b_ms, k3_b_by, k3_err = check_k3(torch, bip_admm, kernel_ops, ref_bip, gen)
+
+    # -- 7. the expert-FFN forward and backward at the training shape
+    print(f"[ffn] K1/K2 forward and the backward uses of K2 at the training shape E,C,D,F={TRAIN}")
+    for dtype_name in ("bfloat16", "float32"):
+        check_kernels(torch, moe_gemm, TRAIN, dtype_name, gen)
+        check_ffn_backward(torch, moe_gemm, kernel_ops, dtype_name, gen)
+
+    # -- 8. train minimind-moe-16e at full width through the kernels
+    tcfg = dataclasses.replace(cfg, routing=dataclasses.replace(cfg.routing, use_kernel=True))
+    tmodel = Model(tcfg, device="cuda")
+    opt_cfg = from_model_config(tcfg)
+    state = init_train_state(tmodel, 0, opt_cfg)
+    stream = SyntheticBatchStream(tcfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, device="cuda")
+    moe_gemm.reset_launch_counts()  # count only the main path's launches
+    bip_admm.reset_launch_counts()
+    t_run = time.perf_counter()
+    state, log = train_loop(tmodel, stream, lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS,
+                            state=state)
+    train_wall = time.perf_counter() - t_run
+    train_launches = {
+        "grouped_gated_ffn_in": moe_gemm.grouped_gated_ffn_in.launches,
+        "grouped_matmul": moe_gemm.grouped_matmul.launches,
+        "bip_admm_iteration": bip_admm.bip_admm_iteration.launches,
+    }
+    n_moe = sum(ffn == "moe" for _, ffn in tcfg.layer_kinds())
+    passes = tcfg.routing.bip_iters * 2  # one coarse + one refine pass per ADMM iteration
+    per_step = {"grouped_gated_ffn_in": n_moe, "grouped_matmul": n_moe * (1 + 8),
+                "bip_admm_iteration": n_moe * passes}
+    summ = log.summary()
+    losses = log.losses
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / summ["mean_step_time"]
+    print(f"[train] {tcfg.name} full width ({tcfg.n_layers} layers, d {tcfg.d_model}, "
+          f"{tcfg.routing.n_experts} experts top-{tcfg.routing.top_k}, moe_d_ff {tcfg.moe_d_ff}, "
+          f"{tcfg.n_shared_experts} shared expert, vocab {tcfg.vocab_size}), fp32 params, bf16 compute, "
+          f"{tcfg.routing.strategy} T={tcfg.routing.bip_iters}, "
+          f"use_kernel=True, AdamW + linear warmup (5) / cosine, lr 1e-3, "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps, synthetic data")
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    print(f"  wall {train_wall:.3f} s, first step {1e3 * log.step_times[0]:.1f} ms, steady step "
+          f"p50 {1e3 * summ['step_time_p50']:.2f} ms p99 {1e3 * summ['step_time_p99']:.2f} ms "
+          f"mean {1e3 * summ['mean_step_time']:.2f} ms, tokens/s {tokens_per_s:.1f}")
+    print(f"  AvgMaxVio {summ['AvgMaxVio']:.4f} SupMaxVio {summ['SupMaxVio']:.4f}; per-layer AvgMaxVio "
+          f"{[round(v, 4) for v in summ['AvgMaxVio_per_layer']]}; last step per-layer MaxVio "
+          f"{[round(float(v), 4) for v in log.max_vio_steps[-1]]}")
+    print(f"  kernel launches in this run: {train_launches}; per step "
+          f"{ {k: v / TRAIN_STEPS for k, v in train_launches.items()} } "
+          f"(expected {per_step}: K1 1 and K2 1 + 8 backward per MoE layer, "
+          f"K3 {passes} per MoE layer)")
+    for name, want in per_step.items():
+        if train_launches[name] != want * TRAIN_STEPS:
+            raise AssertionError(f"{name}: {train_launches[name]} launches in training, "
+                                 f"expected {want * TRAIN_STEPS}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("training produced a non-finite loss")
+    if not sum(losses[-5:]) / 5 < losses[0]:
+        raise AssertionError(f"loss did not fall: first {losses[0]:.4f}, last five {losses[-5:]}")
+    if not summ["AvgMaxVio"] <= 1.0:
+        raise AssertionError(f"AvgMaxVio {summ['AvgMaxVio']:.4f} > 1.0: routing is not balanced")
+    test_ppl = evaluate_ppl(tmodel, state, make_batches(tcfg, TRAIN_BATCH, TRAIN_SEQ, 2,
+                                                        split="test", device="cuda"))
+    print(f"  test perplexity (2 held-out batches) {test_ppl:.2f}")
+
+    # -- 9. where a training step's time goes (two more steps, traced)
+    step_fn = make_train_step(tmodel, opt_cfg, linear_warmup_cosine(1e-3, 5, TRAIN_STEPS))
+    profile_train_steps(torch, step_fn, state, list(
+        make_batches(tcfg, TRAIN_BATCH, TRAIN_SEQ, 2, seed=1, device="cuda")))
+
     record = []
     for name, line in (("grouped_gated_ffn_in", 41), ("grouped_matmul", 94)):
         k_ms, p_ms, lib_ms = timings[name]
-        b_ms, b_by = bound(name, shape, "bfloat16")
+        b_ms, b_by = bound(name, serve_shape, "bfloat16")
         record.append({
             "name": name,
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
             "replaces": f"src/repro/kernels/moe_gemm.py:{line}",
-            "launches": launches[name],
+            "launches": launches[name] + train_launches[name],
             "max_abs_err": err[name],
             "ms": k_ms,
             "plain_ms": p_ms,
@@ -319,6 +615,19 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": lib_ms,
         })
+    record.append({
+        "name": "bip_admm_iteration",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bip_admm.cu",
+        "replaces": "src/repro/kernels/bip_admm.py:43",
+        "launches": train_launches["bip_admm_iteration"],
+        "max_abs_err": k3_err,
+        "ms": k3_ms,
+        "plain_ms": k3_plain_ms,
+        "bound_ms": k3_b_ms,
+        "bound_by": k3_b_by,
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({

@@ -7,6 +7,8 @@ Layer i is group i // period of position i % period.
 
     params_from_numpy(tree, cfg, device)        reference params -> port params
     router_states_from_numpy(states, cfg, dev)  reference states -> port states
+    train_state_from_numpy(params, opt_state, router_states, cfg, device)
+                                                reference TrainState leaves -> port TrainState
     load_npz_params(path, cfg, device)          reference npz checkpoint -> port params
     load_npz_tree(path)                         the npz as a tree of CPU tensors
 
@@ -77,6 +79,25 @@ def router_states_from_numpy(states, cfg: ModelConfig, device="cpu"):
     return _map(unstack_blocks(list(states), cfg), lambda a: _to_tensor(a, device))
 
 
+def train_state_from_numpy(params, opt_state, router_states, cfg: ModelConfig, device="cpu"):
+    """The reference's TrainState (params, AdamW state {'step', 'mu', 'nu'},
+    router states) -> the port's TrainState on `device`. The Adam moments
+    mirror the params tree and are unstacked the same way; the step counter
+    becomes a host integer, as the port's AdamW keeps it."""
+    from repro_torch.training.loop import TrainState  # lazy: training imports models
+
+    opt = {
+        "step": int(np.asarray(opt_state["step"])),
+        "mu": params_from_numpy(opt_state["mu"], cfg, device),
+        "nu": params_from_numpy(opt_state["nu"], cfg, device),
+    }
+    return TrainState(
+        params=params_from_numpy(params, cfg, device),
+        opt_state=opt,
+        router_states=router_states_from_numpy(router_states, cfg, device),
+    )
+
+
 def load_npz_tree(path: str):
     """Read an npz written by the reference's `save_pytree`: leaves under
     `a{i}`, their 'd:'/'l:'/'t:' paths joined by '|' and dtypes in the
@@ -134,5 +155,6 @@ __all__ = [
     "load_npz_tree",
     "params_from_numpy",
     "router_states_from_numpy",
+    "train_state_from_numpy",
     "unstack_blocks",
 ]

@@ -26,13 +26,7 @@ _REGISTRY: Dict[str, "Balancer"] = {}
 
 _warned: set = set()
 
-# what the unmasked use_kernel branches need and where it stands
-_ADMM_KERNEL_TODO = (
-    "the BIP ADMM dual-update kernel (K3, src/repro/kernels/bip_admm.py) is not "
-    "ported yet (ROADMAP.md, queue 2, K3); the port runs use_kernel=True only "
-    "on masked (serving) calls, whose dual update is the plain threshold "
-    "bisection"
-)
+_NO_MESH = "multi-device dual sync (axis_names) is not ported yet"
 
 
 def _warn_once(key: str, msg: str) -> None:
@@ -135,14 +129,67 @@ class TopKBalancer(Balancer):
     """Vanilla softmax top-k — no balancing; the collapse-prone baseline."""
 
 
+@register_balancer("aux_loss")
+class AuxLossBalancer(Balancer):
+    """Loss-Controlled (GShard/Switch): L_balance = alpha * sum_j f_j P_j.
+
+    f_j = m/(k n) sum_i delta_ij (token fraction, no gradient),
+    P_j = 1/n sum_i s_ij         (mean gate score, carries the gradient).
+    With token_mask, both means run over the real rows only.
+    """
+
+    def aux_loss(self, s, idx, cfg, token_mask=None):
+        n, m = s.shape
+        onehot = torch.nn.functional.one_hot(idx.long(), m).to(s.dtype)  # (n, k, m)
+        if token_mask is not None:
+            w = token_mask.to(s.dtype)
+            n_eff = torch.clamp_min(w.sum(), 1.0)
+            f = (onehot * w[:, None, None]).sum(dim=(0, 1)).detach() * (m / (cfg.top_k * n_eff))
+            p_mean = (s * w[:, None]).sum(dim=0) / n_eff
+        else:
+            f = onehot.sum(dim=(0, 1)).detach() * (m / (cfg.top_k * n))
+            p_mean = s.mean(dim=0)
+        return cfg.aux_loss_alpha * torch.sum(f * p_mean)
+
+
+def selection_load(idx: Tensor, m: int, dtype, token_mask: Optional[Tensor] = None,
+                   axis_names: tuple = ()) -> Tensor:
+    """Per-expert selection histogram (m,), masked rows excluded; integer
+    valued, so exact in any summation order."""
+    if axis_names:
+        raise NotImplementedError(_NO_MESH)
+    onehot = torch.nn.functional.one_hot(idx.long(), m).to(dtype)
+    if token_mask is not None:
+        onehot = onehot * token_mask.to(dtype)[:, None, None]
+    return onehot.sum(dim=(0, 1)).detach()
+
+
+@register_balancer("lossfree")
+class LossFreeBalancer(Balancer):
+    """Loss-Free (Wang et al. 2024): per-batch sign update of a bias b.
+
+    The carried 'q' plays the role of b, ADDED to the scores for selection;
+    gate values stay the raw scores, so b gets no gradient.
+    """
+
+    def score_adjust(self, s, state, cfg, *, token_mask=None, axis_names=(),
+                     local_shards=1):
+        return s + state["q"][None, :], {}
+
+    def update_state(self, s, idx, state, cfg, *, token_mask=None, axis_names=()):
+        load = selection_load(idx, s.shape[-1], cfg.router_dtype, token_mask, axis_names)
+        err = load.mean() - load
+        return {"q": state["q"] + cfg.lossfree_lr * torch.sign(err)}
+
+
 @register_balancer("bip")
 class BIPBalancer(Balancer):
     """BIP-Based Balancing (the paper): per-gate ADMM dual update of q.
 
     The dual price q is SUBTRACTED from scores for selection. Masked calls
     (serving) run the plain threshold bisection over the real rows; unmasked
-    calls run the exact sort-based update, or — with use_kernel — would run
-    the ADMM kernel, which is not ported yet and raises.
+    calls run the exact sort-based update, or with use_kernel the ADMM
+    kernel's histogram dual (kernels/ops.py, K3), under either sync mode.
     """
 
     STATE_KEYS = ("q", "q_ema", "q_err")
@@ -168,20 +215,25 @@ class BIPBalancer(Balancer):
         return ("q",) + tuple(k for k in ("q_ema", "q_err") if k in state)
 
     def _solve(self, s, q0, cfg):
+        """The unmasked dual update: the K3 kernel's dual or the exact one."""
         if cfg.use_kernel:
-            raise NotImplementedError(_ADMM_KERNEL_TODO)
+            from repro_torch.kernels import ops as kernel_ops  # lazy: import cycle
+
+            return kernel_ops.bip_dual_update(s, q0, top_k=cfg.top_k, n_iters=cfg.bip_iters)
         q, _ = ref_bip.bip_dual_update(s, q0, top_k=cfg.top_k, n_iters=cfg.bip_iters)
         return q
 
     def score_adjust(self, s, state, cfg, *, token_mask=None, axis_names=(),
                      local_shards=1):
         if axis_names:
-            raise NotImplementedError("multi-device dual sync is not ported yet")
+            raise NotImplementedError(_NO_MESH)
         q0 = state["q"]
         updates: State = {}
         if cfg.sync == "global" and cfg.use_kernel and token_mask is None:
-            raise NotImplementedError(_ADMM_KERNEL_TODO)
-        if cfg.sync == "global" or token_mask is not None:
+            # the reference's collective kernel path with no mesh axes: the
+            # single-device kernel dual
+            q = self._solve(s.detach(), q0, cfg)
+        elif cfg.sync == "global" or token_mask is not None:
             if cfg.use_kernel:  # only reachable with a token mask
                 _warn_once(
                     "kernel-masked",
@@ -223,5 +275,6 @@ __all__ = [
     "register_balancer",
     "registered_balancers",
     "router_metrics",
+    "selection_load",
     "topk_select",
 ]

@@ -2,10 +2,14 @@
 
 MaxVio_batch = max_j Load_j / mean_load - 1, where Load_j is the number of
 tokens matched to expert j in the batch and mean_load = k*n/m.
+
+AvgMaxVio / SupMaxVio are the mean / max of MaxVio over all training
+batches; `BalanceTracker` accumulates them on the host.
 """
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -42,3 +46,26 @@ def balance_metrics(expert_index: Tensor, n_experts: int, top_k: int) -> Dict[st
         "dropped_frac_cap1": torch.sum(torch.clamp_min(load - mean_load, 0.0))
         / torch.clamp_min(load.sum(), 1).float(),
     }
+
+
+@dataclasses.dataclass
+class BalanceTracker:
+    """Accumulates per-batch MaxVio into AvgMaxVio / SupMaxVio (host side).
+
+    One tracker per MoE layer; `add` takes the already-fetched scalar."""
+
+    max_vios: List[float] = dataclasses.field(default_factory=list)
+
+    def add(self, max_vio: float) -> None:
+        self.max_vios.append(float(max_vio))
+
+    @property
+    def avg_max_vio(self) -> float:
+        return float(np.mean(self.max_vios)) if self.max_vios else 0.0
+
+    @property
+    def sup_max_vio(self) -> float:
+        return float(np.max(self.max_vios)) if self.max_vios else 0.0
+
+    def summary(self) -> Dict[str, float]:
+        return {"AvgMaxVio": self.avg_max_vio, "SupMaxVio": self.sup_max_vio}

@@ -23,7 +23,9 @@
 // 16x16x16, fp32 accumulate); fp32 runs on plain FMA in full precision.
 // Unlike the TPU version nothing is padded to 128: every edge (C, D, F
 // arbitrary) is masked in the tile loads and the store. The kernels take
-// strides so a later backward can pass transposed views. wgmma, TMA and a
+// strides: the expert-FFN backward (../ops.py) runs moe_gemm_matmul over
+// transposed views, whose tile loads are then uncoalesced (consecutive
+// threads walk the strided axis). wgmma, TMA, layout-aware loads and a
 // multi-stage pipeline are later work.
 
 #include <cuda_bf16.h>

@@ -7,10 +7,16 @@ The FFN is two grouped GEMMs with a gated activation between:
     y = h @ w_down                           kernel: grouped_matmul
 
 On a CUDA tensor each wrapper launches its kernel from `csrc/moe_gemm.cu`
-(compiled with nvcc for sm_90a at first use, loaded through ctypes) or
-raises; on a CPU tensor it runs the plain PyTorch version in this module.
-Both accumulate in fp32 and return the input's dtype (fp32 or bf16), and
-every shape is taken as is: no padding of C, D or F.
+(compiled with nvcc for sm_90a at first use, loaded through ctypes; see
+nvcc.py) or raises; on a CPU tensor it runs the plain PyTorch version in
+this module. Both accumulate in fp32 and return the input's dtype (fp32 or
+bf16), and every shape is taken as is: no padding of C, D or F.
+
+Operands may be strided views (the expert-FFN backward passes transposed
+weights and activations): their strides go to the kernel as they are, with
+no copy. A zero stride on an axis longer than one (an expanded operand) is
+refused, and so are gate and up weights whose strides differ, because the
+gated kernel takes one stride triple for both.
 
 Each wrapper counts its launches in a plain integer attribute
 (`grouped_gated_ffn_in.launches`, `grouped_matmul.launches`), so a run can
@@ -19,37 +25,16 @@ show that it went through the kernels; `reset_launch_counts()` zeroes them.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "moe_gemm.cu"
-# build products stay inside the package's own (git-ignored) directory
-_BUILD_DIR = Path(__file__).resolve().parent / "_build"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+from repro_torch.kernels import nvcc
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return found
 
 
 def build() -> ctypes.CDLL:
@@ -57,20 +42,7 @@ def build() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = _BUILD_DIR / f"libmoe_gemm-{tag}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = nvcc.build_library("moe_gemm.cu")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     gemm_args = [i32, p, i64, i64, i64]  # dtype, A and its strides
     lib.moe_gemm_gated_ffn_in.argtypes = (
@@ -105,7 +77,7 @@ def grouped_matmul_plain(h, w):
 
 
 def _check(name, a, bs, a_dims, b_dims):
-    """Dtype, rank, shape, device and contiguity checks shared by both
+    """Dtype, rank, shape, device and stride checks shared by both
     wrappers. `a_dims`/`b_dims` name the axes, e.g. ('E','C','D')."""
     if a.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {a.dtype} not supported (float32, bfloat16)")
@@ -117,8 +89,8 @@ def _check(name, a, bs, a_dims, b_dims):
             raise ValueError(f"{name}: {what} must be 3-d {dims}, got {tuple(t.shape)}")
         if t.device != a.device:
             raise ValueError(f"{name}: {what} on {t.device}, input on {a.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be contiguous")
+        if any(st <= 0 and sz > 1 for st, sz in zip(t.stride(), t.shape)):
+            raise ValueError(f"{name}: {what} has a zero stride {t.stride()} (expanded)")
         for dim, size in zip(dims, t.shape):
             if sizes.setdefault(dim, size) != size:
                 raise ValueError(
@@ -129,14 +101,14 @@ def _check(name, a, bs, a_dims, b_dims):
     return sizes
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
-
-
 def grouped_gated_ffn_in(x, w_gate, w_up):
     """x (E,C,D), w_gate/w_up (E,D,F) -> h (E,C,F) in x's dtype."""
     s = _check("grouped_gated_ffn_in", x, (w_gate, w_up), "ECD", "EDF")
+    if w_gate.stride() != w_up.stride():
+        raise ValueError(
+            f"grouped_gated_ffn_in: w_gate strides {w_gate.stride()} differ from "
+            f"w_up strides {w_up.stride()}"
+        )
     if x.device.type == "cpu":
         return grouped_gated_ffn_in_plain(x, w_gate, w_up)
     e, c, d, f = s["E"], s["C"], s["D"], s["F"]
@@ -149,7 +121,7 @@ def grouped_gated_ffn_in(x, w_gate, w_up):
             h.data_ptr(), *h.stride(), e, c, f, d,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _raise_on(rc, "grouped_gated_ffn_in")
+    nvcc.raise_on(rc, "grouped_gated_ffn_in")
     grouped_gated_ffn_in.launches += 1
     return h
 
@@ -169,7 +141,7 @@ def grouped_matmul(h, w):
             y.data_ptr(), *y.stride(), e, c, d, f,
             torch.cuda.current_stream(h.device).cuda_stream,
         )
-    _raise_on(rc, "grouped_matmul")
+    nvcc.raise_on(rc, "grouped_matmul")
     grouped_matmul.launches += 1
     return y
 

@@ -1,5 +1,6 @@
 """Shared model primitives (port of src/repro/models/common.py): RMSNorm,
-RoPE, GQA attention against a slot cache, gated MLPs, embeddings.
+RoPE, GQA attention (chunked training attention and attention against a
+slot cache), gated MLPs, embeddings.
 
 Functions take the reference's parameter layouts (wq (d,h,hd), wo (h,hd,d),
 w_gate (d,f), ...) as plain dicts of tensors. Attention is plain torch, as
@@ -99,6 +100,75 @@ def _attend(q, k, v, mask, softcap: float, compute_dtype) -> Tensor:
     groups = q.shape[2] // v.shape[2]
     vq = torch.repeat_interleave(v, groups, dim=2)
     return torch.einsum("bhqk,bkhd->bqhd", w.to(compute_dtype), vq)
+
+
+def causal_window_mask(q_pos: Tensor, k_pos: Tensor, window: int) -> Tensor:
+    """(..., Sq, Sk) bool. window=0 -> plain causal; else sliding window."""
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
+    mask = diff >= 0
+    if window > 0:
+        mask = mask & (diff < window)
+    return mask
+
+
+def attention(
+    params: Params,
+    x: Tensor,  # (B, S, d)
+    cfg: ModelConfig,
+    *,
+    layer_kind: str = "global",
+    positions: Optional[Tensor] = None,  # (1|B, S)
+    segments: Optional[Tensor] = None,
+    causal: bool = True,
+) -> Tensor:
+    """Training / prefill attention over whole sequences, single device.
+
+    The reference's layout (common.attention): queries in chunks of
+    cfg.attn_chunk (the query axis padded to a chunk multiple with position
+    -1), each chunk against all keys with a causal (or sliding-window) mask,
+    plain einsums and a masked fp32 softmax, so only one (B, H, chunk, S)
+    score block is formed per chunk. Segment-masked packing raises.
+    """
+    if segments is not None:
+        raise NotImplementedError("segment-masked packing (segments=) is not ported yet")
+    b, s, _ = x.shape
+    cd = cfg.compute_dtype
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    theta = cfg.rope_theta
+    window = 0
+    if layer_kind == "local":
+        window = cfg.window_size
+        if cfg.rope_local_theta:
+            theta = cfg.rope_local_theta
+
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(cd))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(cd))
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.rms_norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.rms_norm_eps)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+
+    chunk = min(cfg.attn_chunk, s)
+    pad = (-s) % chunk
+    qpos = positions.expand(b, s)
+    if pad:  # pad the query axis up to a chunk multiple
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        qpos = F.pad(qpos, (0, pad), value=-1)
+    ys = []
+    for c0 in range(0, q.shape[1], chunk):
+        qi, pi = q[:, c0:c0 + chunk], qpos[:, c0:c0 + chunk]
+        if causal:
+            mask = causal_window_mask(pi, positions, window)[:, None]  # (B, 1, c, S)
+        else:
+            mask = (pi >= 0)[:, None, :, None] & torch.ones(
+                (1, 1, 1, s), dtype=torch.bool, device=x.device
+            )
+        ys.append(_attend(qi, k, v, mask, cfg.attn_logit_softcap, cd))
+    y = torch.cat(ys, dim=1)[:, :s]
+    return torch.einsum("bshk,hkd->bsd", y, params["wo"].to(cd))
 
 
 def attention_chunk(

@@ -1,10 +1,12 @@
-"""Top-level model for serving (port of the serving half of
-src/repro/models/model.py): embeddings + attention/MoE stack + tied head,
-advanced chunk by chunk against a slot cache.
+"""Top-level model (port of src/repro/models/model.py): embeddings +
+attention/MoE stack + tied head, for training over whole sequences and for
+serving chunk by chunk against a slot cache.
 
     Model(cfg, device)                          device defaults to "cuda"
     init(seed)                               -> params
     init_router_states()                     -> per-layer router states
+    forward(params, batch, states)           -> (logits, states, aux, mets)
+    loss_fn(params, batch, states)           -> (loss, (states, mets))
     init_slot_cache(params, n_slots, max_len)-> {'layers': [{'k','v','pos'}]}
     reset_slot(cache, slot)                  -> cache (zeroed in place)
     prefill_chunk(params, tokens, cache, states, lengths)
@@ -64,6 +66,43 @@ class Model:
 
     def init_router_states(self) -> list:
         return stack.init_stack_router_states(self.cfg, self.device)
+
+    # ---------------------------------------------------------- training
+
+    def forward(
+        self, params: Params, batch: Dict[str, Tensor], router_states: list
+    ) -> Tuple[Tensor, list, Tensor, Dict[str, Tensor]]:
+        """Whole-sequence forward of batch['tokens'] (B, S) int64. Returns
+        (logits (B, S, vocab) fp32, new router states, aux loss, metrics)
+        with the stack's '<key>_per_layer' columns."""
+        if batch.get("segments") is not None:
+            raise NotImplementedError("segment-masked packing (segments=) is not ported yet")
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = common.embed(params["embed"], tokens, cfg)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        x, new_states, aux, mets = stack.apply_stack(
+            params["stack"], x, router_states, cfg, positions=positions
+        )
+        x = common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
+        logits = common.unembed(params["embed"], x, cfg)
+        return logits, new_states, aux, mets
+
+    def loss_fn(self, params: Params, batch: Dict[str, Tensor], router_states: list):
+        """Masked next-token cross entropy (labels < 0 are ignored) plus the
+        balancers' aux loss. Returns (loss, (new router states, metrics))
+        with metrics gaining 'ce_loss', 'aux_loss' and 'perplexity'."""
+        logits, new_states, aux, mets = self.forward(params, batch, router_states)
+        labels = batch["labels"]
+        valid = labels >= 0
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, torch.clamp_min(labels, 0)[..., None])[..., 0]
+        nll = torch.where(valid, nll, torch.zeros_like(nll))
+        ce = torch.sum(nll) / torch.clamp_min(valid.sum(), 1).float()
+        loss = ce + aux
+        mets = dict(mets)
+        mets.update(ce_loss=ce, aux_loss=aux, perplexity=torch.exp(ce))
+        return loss, (new_states, mets)
 
     # ---------------------------------------------------------- serving
 

@@ -9,6 +9,10 @@ position i % period of group i // period in the reference's layout
 Block structure (pre-norm residual):
     x += [post_norm](attn(pre_norm(x)))
     x += [post_norm](ffn(ffn_norm(x)))     ffn in {dense, moe (+ shared mlp)}
+
+`apply_layer` / `apply_stack` run the training forward over whole
+sequences; MoE layers thread their router state and return their metrics,
+which `apply_stack` stacks into '<key>_per_layer' columns in layer order.
 """
 from __future__ import annotations
 
@@ -87,3 +91,75 @@ def _maybe_post(p: Params, name: str, y, cfg: ModelConfig):
     if cfg.post_block_norms and name in p:
         return common.rmsnorm(p[name], y, cfg.rms_norm_eps)
     return y
+
+
+def apply_layer(
+    p: Params,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ModelConfig,
+    mixer_kind: str,
+    ffn_kind: str,
+    router_state: Optional[Dict[str, torch.Tensor]],
+    *,
+    positions: Optional[torch.Tensor] = None,
+    segments: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor, Dict]:
+    """One layer over whole sequences. Returns (x, new_router_state,
+    aux_loss, metrics); MoE layers report 'max_vio', 'load' and the router's
+    'dropped_frac_cap1' and 'q_abs_max', as the reference's local path."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    mets: Dict[str, torch.Tensor] = {}
+    b, s, d = x.shape
+    h = common.attention(
+        p["attn"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps), cfg,
+        layer_kind=mixer_kind, positions=positions, segments=segments,
+    )
+    x = x + _maybe_post(p, "post_attn_norm", h, cfg)
+    if ffn_kind == "dense":
+        h = common.mlp(p["mlp"], common.rmsnorm(p["ffn_norm"], x, cfg.rms_norm_eps), cfg)
+        x = x + _maybe_post(p, "post_ffn_norm", h, cfg)
+    elif ffn_kind == "moe":
+        xin = common.rmsnorm(p["ffn_norm"], x, cfg.rms_norm_eps)
+        y, router_state, aux_moe, moe_mets = moe.moe_ffn_local(
+            p["moe"], xin.reshape(b * s, d), router_state, cfg
+        )
+        h = y.reshape(b, s, d)
+        if cfg.n_shared_experts and "shared_mlp" in p:
+            h = h + common.mlp(p["shared_mlp"], xin, cfg)
+        x = x + h
+        aux = aux + aux_moe
+        mets = {"max_vio": moe_mets["max_vio"], "load": moe_mets["load"]}
+        for k in ("dropped_frac_cap1", "q_abs_max"):
+            if k in moe_mets:
+                mets[k] = moe_mets[k]
+    return x, router_state, aux, mets
+
+
+def apply_stack(
+    params: Params,
+    x: torch.Tensor,
+    router_states: List[Optional[Dict]],
+    cfg: ModelConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    segments: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, List[Optional[Dict]], torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run every layer in order. Returns (x, new_router_states, aux_total,
+    metrics) with metrics['<key>_per_layer'] stacked over the MoE layers in
+    layer order (e.g. 'max_vio_per_layer' (n_moe,), 'load_per_layer'
+    (n_moe, m) int64)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_states: List[Optional[Dict]] = []
+    per_layer: Dict[str, list] = {}
+    for (mixer, ffn), p, st in zip(cfg.layer_kinds(), params["layers"], router_states):
+        x, st, aux, mets = apply_layer(
+            p, x, cfg, mixer, ffn, st, positions=positions, segments=segments
+        )
+        new_states.append(st)
+        aux_total = aux_total + aux
+        for k, v in mets.items():
+            per_layer.setdefault(k, []).append(v)
+    metrics = {f"{k}_per_layer": torch.stack(v) for k, v in per_layer.items()}
+    if "max_vio_per_layer" not in metrics:
+        metrics["max_vio_per_layer"] = torch.zeros((0,), dtype=torch.float32, device=x.device)
+    return x, new_states, aux_total, metrics

@@ -1,0 +1,109 @@
+"""AdamW with a per-config state dtype policy and global-norm clipping
+(port of src/repro/optim/adamw.py).
+
+State mirrors the params tree: {'step': int, 'mu': tree, 'nu': tree}. The
+update math runs in fp32 whatever the stored dtypes; weight decay applies
+to matrices (ndim >= 2) only.
+
+Unlike the reference, which returns new trees, `adamw_update` updates the
+params and moments IN PLACE under torch.no_grad() (one copy of the state
+lives on the device) and returns the same trees; `step` is a host integer.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    mu_dtype: Any = torch.float32
+    nu_dtype: Any = torch.float32
+
+
+def _dtype(name: str):
+    return torch.bfloat16 if name == "bf16" else torch.float32
+
+
+def from_model_config(cfg, **overrides) -> AdamWConfig:
+    return AdamWConfig(
+        mu_dtype=_dtype(cfg.adam_mu_dtype),
+        nu_dtype=_dtype(cfg.adam_nu_dtype),
+        **overrides,
+    )
+
+
+def tree_leaves(tree) -> List[Tensor]:
+    """Tensor leaves of a dict/list tree in a fixed (insertion) order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+def adamw_init(params, cfg: AdamWConfig) -> Dict[str, Any]:
+    return {
+        "step": 0,
+        "mu": tree_map(lambda p: torch.zeros_like(p, dtype=cfg.mu_dtype), params),
+        "nu": tree_map(lambda p: torch.zeros_like(p, dtype=cfg.nu_dtype), params),
+    }
+
+
+def global_norm(leaves: List[Tensor]) -> Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+
+
+@torch.no_grad()
+def adamw_update(
+    grads: List[Tensor],
+    opt_state: Dict[str, Any],
+    params,
+    lr: float,
+    cfg: AdamWConfig,
+) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
+    """One AdamW step, in place. `grads` are in the order of
+    tree_leaves(params). Returns (params, opt_state, info) with info
+    {'grad_norm': device scalar, 'lr': lr}."""
+    step = opt_state["step"] + 1
+    p_leaves = tree_leaves(params)
+    mu_leaves, nu_leaves = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
+    gnorm = global_norm(grads)
+    scale = None
+    if cfg.clip_norm > 0:
+        scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
+    b1, b2 = cfg.b1, cfg.b2
+    c1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** float(step)
+    c2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** float(step)
+    c1, c2 = float(c1), float(c2)  # host scalars: fp32 values, no device sync
+    for g, mu, nu, p in zip(grads, mu_leaves, nu_leaves, p_leaves):
+        if scale is not None:
+            g = g * scale.to(g.dtype)
+        g32 = g.float()
+        mu_n = b1 * mu.float() + (1 - b1) * g32
+        nu_n = b2 * nu.float() + (1 - b2) * g32 * g32
+        delta = (mu_n / c1) / (torch.sqrt(nu_n / c2) + cfg.eps)
+        if p.dim() >= 2 and cfg.weight_decay > 0:  # decay matrices only
+            delta = delta + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        mu.copy_(mu_n)
+        nu.copy_(nu_n)
+    opt_state["step"] = step
+    return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -1,10 +1,13 @@
-"""The port on the GPU: the CUDA kernels against their plain versions, and
-the serving engine launching them. Needs an NVIDIA GPU and nvcc; skips
-elsewhere. Imports no JAX, so it runs where only the port is installed:
+"""The port on the GPU: the CUDA kernels against their plain versions, the
+serving engine and the train step launching them. Needs an NVIDIA GPU and
+nvcc; skips elsewhere. Imports no JAX, so it runs where only the port is
+installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -12,9 +15,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.kernels import moe_gemm  # noqa: E402
+from repro_torch.data import make_batches  # noqa: E402
+from repro_torch.kernels import bip_admm, moe_gemm, ops  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.optim import constant, from_model_config  # noqa: E402
 from repro_torch.serving import ContinuousBatchingEngine  # noqa: E402
+from repro_torch.training import init_train_state, make_train_step  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +87,81 @@ def test_engine_serves_through_the_kernels(cuda_device):
     launches = cfg.n_layers * eng.n_steps
     assert moe_gemm.grouped_gated_ffn_in.launches == launches
     assert moe_gemm.grouped_matmul.launches == launches
+
+
+@pytest.mark.parametrize("n,m,k", [(8192, 16, 4), (1000, 64, 8), (1001, 16, 4)])
+@pytest.mark.parametrize("refined", [False, True])
+def test_admm_kernel_is_bit_equal_to_plain(cuda_device, n, m, k, refined):
+    """K3: p and counts equal to the plain version's, bit for bit (exact
+    order statistic, integer counts, the same edges)."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + m)
+    s = torch.softmax(torch.randn(n, m, device=cuda_device, generator=g) * 2, dim=-1)
+    q = torch.rand(m, device=cuda_device, generator=g) * 0.3
+    lo = -torch.ones(m, device=cuda_device)
+    hi = torch.ones(m, device=cuda_device)
+    if refined:
+        _, cnt = bip_admm.bip_admm_iteration_plain(s, q, lo, hi, top_k=k, n_bins=512)
+        lo, hi, _ = bip_admm.locate_bin(cnt, n * k // m, 512, lo, hi)
+    bip_admm.reset_launch_counts()
+    p, cnt = bip_admm.bip_admm_iteration(s, q, top_k=k, lo=lo, hi=hi)
+    torch.cuda.synchronize()
+    assert bip_admm.bip_admm_iteration.launches == 1
+    pp, cp = bip_admm.bip_admm_iteration_plain(s, q, lo, hi, top_k=k, n_bins=512)
+    assert torch.equal(p, pp) and torch.equal(cnt, cp)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_expert_ffn_backward_through_kernels(cuda_device, dtype):
+    """The backward's eight K2 launches give the gradients that the same
+    backward on the plain versions gives: fp32 elementwise 1e-5 relative;
+    bf16 within 2^-6 in norm (each product rounds once to bf16, and the
+    intermediates' one-rounding differences carry on)."""
+    dt = getattr(torch, dtype)
+    x, wg, wu, wd = _inputs((3, 37, 72, 200), dt, cuda_device, seed=1)
+    dy = torch.randn(x.shape, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(2)).to(dt)
+
+    def grads():
+        leaves = [a.detach().clone().requires_grad_(True) for a in (x, wg, wu, wd)]
+        ops.expert_ffn(*leaves).backward(dy)
+        return [a.grad.float() for a in leaves]
+
+    moe_gemm.reset_launch_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    assert moe_gemm.grouped_matmul.launches == 1 + 8
+    assert moe_gemm.grouped_gated_ffn_in.launches == 1
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(moe_gemm, "grouped_gated_ffn_in", moe_gemm.grouped_gated_ffn_in_plain)
+        mp.setattr(moe_gemm, "grouped_matmul", moe_gemm.grouped_matmul_plain)
+        want = grads()
+    for a, b in zip(got, want):
+        if dt == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * b.abs().max().item())
+        else:
+            assert float((a - b).norm() / b.norm()) <= 2.0**-6
+
+
+def test_train_steps_launch_the_kernels(cuda_device):
+    """Two reduced-width training steps (16 experts top-4, bip T=4,
+    use_kernel=True): per MoE layer and step, K1 once, K2 once forward and
+    eight times backward, K3 twice per ADMM iteration (coarse + refine)."""
+    full = configs.get("minimind_moe_16e")
+    routing = dataclasses.replace(full.routing, use_kernel=True)
+    cfg = configs.reduced_for_smoke("minimind_moe_16e", routing=routing, vocab_size=128)
+    model = Model(cfg)
+    opt = from_model_config(cfg)
+    state = init_train_state(model, 0, opt)
+    step = make_train_step(model, opt, constant(1e-3))
+    moe_gemm.reset_launch_counts()
+    bip_admm.reset_launch_counts()
+    losses = []
+    for batch in make_batches(cfg, 4, 64, 2, device=cuda_device):
+        state, mets = step(state, batch)
+        losses.append(float(mets["loss"]))
+    n_moe, steps = cfg.n_layers, 2
+    assert moe_gemm.grouped_gated_ffn_in.launches == n_moe * steps
+    assert moe_gemm.grouped_matmul.launches == n_moe * 9 * steps
+    assert bip_admm.bip_admm_iteration.launches == n_moe * cfg.routing.bip_iters * 2 * steps
+    assert all(np.isfinite(losses))
+    assert float(mets["max_vio_per_layer"].max()) < 1.0

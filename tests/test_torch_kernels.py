@@ -95,10 +95,15 @@ def test_cpu_path_keeps_dtype_and_counts_no_launch(monkeypatch):
         ("mixed_dtype", TypeError),
         ("rank", ValueError),
         ("shape", ValueError),
-        ("noncontiguous", ValueError),
+        ("unequal_strides", ValueError),
+        ("zero_stride", ValueError),
     ],
 )
 def test_wrappers_reject_bad_input(bad, err):
+    """Malformed operands raise. Strided views are taken (see the next
+    test), except an expanded one (a zero stride) and, for K1, gate and up
+    weights of unequal strides (the kernel takes one stride triple for
+    both); 'unequal_strides' has no K2 counterpart."""
     x, wg, wu, wd = _t(*_inputs(SHAPES[1]))
     if bad == "float16":
         x, wg, wu = x.half(), wg.half(), wu.half()
@@ -108,8 +113,10 @@ def test_wrappers_reject_bad_input(bad, err):
         x = x[0]
     elif bad == "shape":
         wu = wu[:, :-1]
-    elif bad == "noncontiguous":
+    elif bad == "unequal_strides":
         wg = wg.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "zero_stride":
+        x = x[:, :1].expand(-1, x.shape[1], -1)
     with pytest.raises(err):
         moe_gemm.grouped_gated_ffn_in(x, wg, wu)
     h = moe_gemm.grouped_gated_ffn_in_plain(*_t(*_inputs(SHAPES[1])[:3]))
@@ -119,7 +126,29 @@ def test_wrappers_reject_bad_input(bad, err):
         h = h[0]
     elif bad == "shape":
         wd = wd[:, :-1]
-    elif bad == "noncontiguous":
-        wd = wd.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "zero_stride":
+        wd = wd[:, :, :1].expand(-1, -1, wd.shape[2])
+    if bad == "unequal_strides":
+        return
     with pytest.raises(err):
         moe_gemm.grouped_matmul(h, wd)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_wrappers_take_transposed_views(shape):
+    """Transposed views, as the expert-FFN backward passes them, give what
+    .contiguous() copies of them give."""
+    x, wg, wu, wd = _t(*_inputs(shape, seed=3))
+    t = lambda a: a.transpose(1, 2)  # noqa: E731
+    wg_v, wu_v = t(t(wg).contiguous()), t(t(wu).contiguous())  # same values, strided
+    assert not wg_v.is_contiguous()
+    torch.testing.assert_close(
+        moe_gemm.grouped_gated_ffn_in(x, wg_v, wu_v), moe_gemm.grouped_gated_ffn_in(x, wg, wu),
+        rtol=RTOL, atol=ATOL,
+    )
+    h = moe_gemm.grouped_gated_ffn_in(x, wg, wu)
+    for a, b in ((h, t(t(wd).contiguous())), (t(x), x), (t(h), t(t(h).contiguous()))):
+        torch.testing.assert_close(
+            moe_gemm.grouped_matmul(a, b),
+            moe_gemm.grouped_matmul(a.contiguous(), b.contiguous()), rtol=RTOL, atol=ATOL,
+        )

@@ -205,10 +205,23 @@ def test_balance_metrics_match():
 
 
 def test_unmasked_kernel_dual_update_raises():
+    """The unmasked use_kernel dual update (the K3 kernel's) raises where it
+    cannot run: scores on a device that is neither the CPU nor a GPU, and a
+    mesh's axis_names (multi-device sync is not ported). On CPU tensors it
+    runs the kernel's plain version, and the masked (serving) form runs the
+    plain bisection."""
+    from repro_torch.kernels import ops
+
     tc = configs.get("minimind_moe_16e").routing.to_router_config(use_kernel=True)
+    meta = torch.zeros(8, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.bip_dual_update(meta, torch.zeros(16, device="meta"), top_k=4, n_iters=1)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        balancers.get_balancer("bip").score_adjust(
+            torch.full((8, 16), 1 / 16), {"q": torch.zeros(16)}, tc, axis_names=("data",)
+        )
     logits = torch.zeros(8, 16)
-    with pytest.raises(NotImplementedError, match="K3"):
-        router.route(logits, {"q": torch.zeros(16)}, tc)
-    # the masked (serving) form runs the plain bisection
+    out = router.route(logits, {"q": torch.zeros(16)}, tc)
+    assert out.expert_index.shape == (8, 4)
     out = router.route(logits, {"q": torch.zeros(16)}, tc, token_mask=torch.ones(8, dtype=torch.bool))
     assert out.expert_index.shape == (8, 4)

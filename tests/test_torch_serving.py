@@ -159,7 +159,7 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = configs.reduced_for_smoke(ARCH, vocab_size=64)
@@ -167,6 +167,8 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
         Model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "minimind-moe-16e", "--reduced"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "minimind-moe-16e", "--reduced", "--steps", "1"])
     model = Model(cfg, device="cpu")
     eng = ContinuousBatchingEngine(model, model.init(0), n_slots=2, chunk_size=4, max_seq_len=16)
     assert eng.device.type == "cpu"
