@@ -6,11 +6,13 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from
      src/repro_torch/kernels/csrc with nvcc (sm_90a), one nvcc per source,
-     all started together, and time each build;
+     all started together, and time each build; ptxas's registers, spills
+     and static shared memory of every kernel instantiation, and the
+     dynamic shared memory of the bf16 GEMM;
   2. each kernel against its plain PyTorch version at the serving shape
      (E=16, C=160, D=512, F=1408) and a ragged one (C=37, F=1400), in bf16
-     and fp32, with the stated tolerance; kernel, plain-version and library
-     (torch.bmm) times beside the bound the card could reach;
+     (every (A, B) layout pair: K-major or MN-major operands) and fp32,
+     with the stated tolerance;
   3. a small-input reference check of one full-width MoE layer (kernel path
      against the plain einsum path on the same routing);
   4. serve minimind-moe-16e at full width (seeded random weights) through the
@@ -18,24 +20,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      16-96 tokens, 32 greedy tokens each; the kernels' launch counts from
      this run must be > 0;
   5. a short torch.profiler trace of serve steps: device busy share, kernel
-     launches per step, the kernels that take the most device time;
+     launches per step, the kernels that take the most device time; then
+     K1/K2 at the serving shape: kernel, plain-version and library
+     (torch.bmm) device times (profiler) beside the bound the card could
+     reach, the kernel's time per call by CUDA events, and the per-call
+     fp32->bf16 cast of one layer's expert weights;
   6. the BIP-ADMM dual kernel (K3) against its plain version at
      (n, m, k) = (8192, 16, 4), (1000, 64, 8) and a ragged n, with the
      default and with refined per-expert bounds (p and counts bit-equal),
      the full dual update against the plain-version loop (bit-equal) and
      the exact sort-based dual (within 2/512 + 5e-3); its time and bound;
-  7. the expert-FFN backward through K2 at the training shape (E=16,
-     C=2560, D=512, F=1408), bf16 and fp32: each backward product against
-     its plain version on the same inputs, and the gradients of all four
-     operands against the same backward run on the plain versions; the
-     time of each product;
+  7. K1/K2 forward at the training shape (E=16, C=2560, D=512, F=1408),
+     every layout pair in bf16, and their times as in phase 5; the
+     expert-FFN backward through K2 at that shape, bf16 and fp32: each
+     backward product against its plain version on the same inputs, and
+     the gradients of all four operands against the same backward run on
+     the plain versions; the time of each product;
   8. train minimind-moe-16e at full width (seeded random weights, synthetic
      data, batch 16 x 512, bip with T=4, use_kernel=True, AdamW with a
      linear-warmup cosine schedule) for 20 steps through train_loop: the
      loss must be finite and fall and AvgMaxVio stay <= 1.0; the K1/K2/K3
      launches per step must be exactly 8 / 8+64 / 64;
   9. a torch.profiler trace of two training steps: device busy share,
-     launches per step, the top kernels.
+     launches per step, K1 and K2 device time per step, the top kernels.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
 that outlives it (nvcc and nvidia-smi run to completion).
@@ -58,6 +65,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 SMOKE = (16, 160, 512, 1408)  # (E, C, D, F): minimind-16e at 16 slots x 32 tokens
 RAGGED = (16, 37, 512, 1400)
+# (A, B) layouts of a product A (E,M,K) @ B (E,K,N): 'K' = the reduction
+# axis has unit stride, 'MN' = the M or N axis has. The first is the
+# forward's; the backward's uses are (K, K) and (MN, MN).
+PAIRS = (("K", "MN"), ("K", "K"), ("MN", "MN"), ("MN", "K"))
 TRAIN = (16, 2560, 512, 1408)  # (E, C, D, F): minimind-16e training, 16 x 512 tokens
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 512, 20
 K3_CASES = ((8192, 16, 4), (1000, 64, 8), (8191, 16, 4))  # (n, m, k); 8191: ragged
@@ -83,9 +94,10 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(torch, fn, arg_sets, reps=10):
-    """Mean device time of one call, by CUDA events over reps x len(arg_sets)
-    calls. Cycling through several weight sets (one per layer) keeps the
-    weights cold in L2, as the serving path finds them."""
+    """Mean time of one call, by CUDA events over reps x len(arg_sets) calls:
+    the device's time, or the host's where issuing a call takes longer.
+    Cycling through several weight sets (one per layer) keeps the weights
+    cold in L2, as the serving path finds them."""
     for args in arg_sets:
         fn(*args)
     torch.cuda.synchronize()
@@ -115,42 +127,138 @@ def bound(name, shape, dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def with_layout(t, k_axis, major):
+    """t's values in the layout asked for: 'K' puts the unit stride on the
+    reduction axis k_axis (1 or 2), 'MN' on the other matrix axis."""
+    unit = k_axis if major == "K" else 3 - k_axis
+    return t if t.stride(unit) == 1 else t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
 def check_kernels(torch, moe_gemm, shape, dtype_name, gen):
-    """Kernel vs plain version on one shape/dtype; returns the max abs errors."""
+    """Kernel vs plain version on one shape/dtype, in bf16 for every
+    (A, B) layout pair (fp32: the forward's); returns the max abs errors."""
     dt = getattr(torch, dtype_name)
     e, c, d, f = shape
     x = torch.randn(e, c, d, device="cuda", generator=gen).to(dt)
     wg = (torch.randn(e, d, f, device="cuda", generator=gen) / d**0.5).to(dt)
     wu = (torch.randn(e, d, f, device="cuda", generator=gen) / d**0.5).to(dt)
     wd = (torch.randn(e, f, d, device="cuda", generator=gen) / f**0.5).to(dt)
-    h = moe_gemm.grouped_gated_ffn_in(x, wg, wu)
-    y = moe_gemm.grouped_matmul(h, wd)
-    h_ref = moe_gemm.grouped_gated_ffn_in_plain(x, wg, wu)
-    y_ref = moe_gemm.grouped_matmul_plain(h, wd)  # same input h: K2 alone
-    torch.cuda.synchronize()
     rtol, atol_frac = TOL[dtype_name]
     out = {}
-    for name, got, want in (("grouped_gated_ffn_in", h, h_ref), ("grouped_matmul", y, y_ref)):
-        got, want = got.float(), want.float()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{name} {dtype_name} {shape}: non-finite output")
-        err = (got - want).abs()
-        limit = rtol * want.abs() + atol_frac * want.abs().max()
-        max_abs = float(err.max())
-        max_rel = float((err / want.abs().clamp_min(1e-3 * float(want.abs().max()))).max())
-        ok = bool((err <= limit).all())
-        print(f"  {name:22s} {dtype_name:8s} E,C,D,F={shape}: max_abs_err {max_abs:.3e} "
-              f"max_rel_err {max_rel:.3e} (tolerance rtol {rtol:.2e} + {atol_frac:.2e}*max|ref|) "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name} {dtype_name} {shape} disagrees with its plain version")
-        out[name] = max_abs
+    for am, bm in PAIRS if dtype_name == "bfloat16" else PAIRS[:1]:
+        xa, wga, wua = with_layout(x, 2, am), with_layout(wg, 1, bm), with_layout(wu, 1, bm)
+        if am == "MN" and c % 8:
+            # x (and h) MN-major: C is the unit-stride axis and K's stride is
+            # C elements, off TMA's 16-byte grain: the wrappers must refuse
+            for fn, args in ((moe_gemm.grouped_gated_ffn_in, (xa, wga, wua)),
+                             (moe_gemm.grouped_matmul, (xa, wga))):
+                try:
+                    fn(*args)
+                except ValueError:
+                    continue
+                raise AssertionError(f"{fn.__name__} took an operand TMA cannot read")
+            print(f"  {'both':22s} {dtype_name:8s} E,C,D,F={shape} A {am:2s} B {bm:2s}: refused "
+                  f"(ValueError: K's stride of {c} elements is off TMA's 16-byte grain) ok")
+            continue
+        h = moe_gemm.grouped_gated_ffn_in(xa, wga, wua)
+        h_ref = moe_gemm.grouped_gated_ffn_in_plain(xa, wga, wua)
+        ha, wda = with_layout(h, 2, am), with_layout(wd, 1, bm)  # same input h: K2 alone
+        y, y_ref = moe_gemm.grouped_matmul(ha, wda), moe_gemm.grouped_matmul_plain(ha, wda)
+        torch.cuda.synchronize()
+        for name, got, want in (("grouped_gated_ffn_in", h, h_ref), ("grouped_matmul", y, y_ref)):
+            got, want = got.float(), want.float()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{name} {dtype_name} {shape} A {am} B {bm}: non-finite output")
+            err = (got - want).abs()
+            limit = rtol * want.abs() + atol_frac * want.abs().max()
+            max_abs = float(err.max())
+            max_rel = float((err / want.abs().clamp_min(1e-3 * float(want.abs().max()))).max())
+            ok = bool((err <= limit).all())
+            print(f"  {name:22s} {dtype_name:8s} E,C,D,F={shape} A {am:2s} B {bm:2s}: max_abs_err "
+                  f"{max_abs:.3e} max_rel_err {max_rel:.3e} (tolerance rtol {rtol:.2e} + "
+                  f"{atol_frac:.2e}*max|ref|) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"{name} {dtype_name} {shape} A {am} B {bm} disagrees with its plain version")
+            out[name] = max(out.get(name, 0.0), max_abs)
     return out
 
 
+def device_ms(torch, fn, arg_sets, reps=10, name_part=None):
+    """Mean device time of one call: the summed duration of every kernel the
+    calls launch (with `name_part`: of the one kernel whose name holds it,
+    which each call must launch once), from a torch.profiler trace of
+    reps x len(arg_sets) calls. Unlike time_ms it leaves out the host's
+    time between launches, which exceeds the device's for a kernel of a few
+    tens of microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for args in arg_sets:
+                fn(*args)
+        torch.cuda.synchronize()
+    calls = reps * len(arg_sets)
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+          and (name_part is None or name_part in e.name)]
+    if not ev or (name_part is not None and len(ev) != calls):
+        raise AssertionError(f"profiler saw {len(ev)} device events of {name_part or 'any kernel'} "
+                             f"over {calls} calls")
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / calls
+
+
+def time_forward(torch, moe_gemm, shape, gen, n_sets):
+    """bf16 K1 and K2 forward at `shape`: device ms of the kernel, of its
+    plain version and of torch.bmm, then the kernel's ms per call by CUDA
+    events (host time between launches included). Cycling through n_sets
+    weight sets (one per layer) keeps the weights cold in L2, as the
+    serving path finds them."""
+    e_, c_, d_, f_ = shape
+    sets = []
+    for _ in range(n_sets):
+        x = torch.randn(e_, c_, d_, device="cuda", generator=gen).bfloat16()
+        wg = (torch.randn(e_, d_, f_, device="cuda", generator=gen) / d_**0.5).bfloat16()
+        wu = (torch.randn(e_, d_, f_, device="cuda", generator=gen) / d_**0.5).bfloat16()
+        wd = (torch.randn(e_, f_, d_, device="cuda", generator=gen) / f_**0.5).bfloat16()
+        h = moe_gemm.grouped_gated_ffn_in_plain(x, wg, wu)
+        sets.append((x, wg, wu, wd, h, torch.cat([wg, wu], dim=-1)))
+    k1_args, k2_args = [s[:3] for s in sets], [(s[4], s[3]) for s in sets]
+    return {
+        "grouped_gated_ffn_in": (
+            device_ms(torch, moe_gemm.grouped_gated_ffn_in, k1_args),
+            device_ms(torch, moe_gemm.grouped_gated_ffn_in_plain, k1_args),
+            # one bmm over [wg | wu]: both products, without the SwiGLU epilogue
+            device_ms(torch, torch.bmm, [(s[0], s[5]) for s in sets]),
+            time_ms(torch, moe_gemm.grouped_gated_ffn_in, k1_args),
+        ),
+        "grouped_matmul": (
+            device_ms(torch, moe_gemm.grouped_matmul, k2_args),
+            device_ms(torch, moe_gemm.grouped_matmul_plain, k2_args),
+            device_ms(torch, torch.bmm, k2_args),
+            time_ms(torch, moe_gemm.grouped_matmul, k2_args),
+        ),
+    }
+
+
+def print_forward_times(timings, shape):
+    for name, (k_ms, p_ms, lib_ms, call_ms) in timings.items():
+        b_ms, b_by = bound(name, shape, "bfloat16")
+        print(f"  {name:22s} bf16 E,C,D,F={shape}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+              f"library_ms (torch.bmm) {lib_ms:.4f} (device time, profiler) bound_ms {b_ms:.4f} "
+              f"({b_by}); kernel per call by CUDA events {call_ms:.4f} ms")
+
+
+# the bf16 GEMM's instantiations by template argument GATED (profiler names)
+GEMM_KERNELS = {"K1": "wgmma_gemm_kernel<true", "K2": "wgmma_gemm_kernel<false"}
+
+
 def summarize_trace(torch, prof, label, n_steps, wall_us):
-    """Device busy share of the wall time, kernel launches per step and the
-    kernels with the most device time, from a torch.profiler trace."""
+    """Device busy share of the wall time, kernel launches per step, K1 and
+    K2 device time per step, and the kernels with the most device time,
+    from a torch.profiler trace."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         print(f"[{label}] the profiler recorded no device activity: busy share not measured")
@@ -164,6 +272,11 @@ def summarize_trace(torch, prof, label, n_steps, wall_us):
           f"device busy {busy_us / 1e3:.2f} ms = {100 * busy_us / wall_us:.1f}% "
           f"(idle {100 - 100 * busy_us / wall_us:.1f}%), "
           f"{len(kernels) / max(n_steps, 1):.0f} kernel launches per step")
+    for k, part in GEMM_KERNELS.items():
+        t = sum(e.time_range.elapsed_us() for e in kernels if part in e.name)
+        n = sum(part in e.name for e in kernels)
+        print(f"  {k} ({part}...>): {t / 1e3 / max(n_steps, 1):.3f} ms of device time per step, "
+              f"{n / max(n_steps, 1):.0f} launches per step")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {t / busy_us:6.1%} of device time  {t / 1e3:8.3f} ms  {n:6d} launches  {name[:90]}")
 
@@ -186,25 +299,6 @@ def profile_steps(torch, eng, vocab, rng, n_requests=16, prompt=32, gen=8):
             n_steps += 1
         wall_us = 1e6 * (time.perf_counter() - t0)
     summarize_trace(torch, prof, f"profile: decode, {n_requests} slots busy", n_steps, wall_us)
-
-
-def kernel_device_us(torch, fn, name_part, reps=50):
-    """Mean device time of the one kernel (name holding `name_part`) that
-    each call of fn launches, from a torch.profiler trace of `reps` calls:
-    the kernel alone, without the host time between launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and name_part in e.name]
-    if len(ev) != reps:
-        raise AssertionError(f"profiler saw {len(ev)} launches of {name_part}, expected {reps}")
-    return sum(e.time_range.elapsed_us() for e in ev) / reps
 
 
 def k3_bound(n, m, k, n_bins):
@@ -262,18 +356,18 @@ def check_k3(torch, bip_admm, kernel_ops, ref_bip, gen):
     s = torch.softmax(torch.randn(n, m, device="cuda", generator=gen), dim=-1)
     q = torch.rand(m, device="cuda", generator=gen) * 0.3
     lo, hi = -torch.ones(m, device="cuda"), torch.ones(m, device="cuda")
-    kernel_us = kernel_device_us(
-        torch, lambda: bip_admm.bip_admm_iteration(s, q, top_k=k), "bip_admm_iteration_kernel")
+    kernel_ms = device_ms(torch, lambda: bip_admm.bip_admm_iteration(s, q, top_k=k), [()], reps=50,
+                          name_part="bip_admm_iteration_kernel")
     wrapper_ms = time_ms(torch, lambda: bip_admm.bip_admm_iteration(s, q, top_k=k), [()], reps=50)
     plain_ms = time_ms(
         torch, lambda: bip_admm.bip_admm_iteration_plain(s, q, lo, hi, top_k=k, n_bins=N_BINS),
         [()], reps=20)
     b_ms, b_by = k3_bound(n, m, k, N_BINS)
-    print(f"  bip_admm_iteration n,m,k=({n},{m},{k}), {N_BINS} bins: kernel_ms {kernel_us / 1e3:.4f} "
+    print(f"  bip_admm_iteration n,m,k=({n},{m},{k}), {N_BINS} bins: kernel_ms {kernel_ms:.4f} "
           f"(device time, profiler) wrapper_ms {wrapper_ms:.4f} (events around the wrapper: edges, "
           f"launch, suffix sum) plain_ms {plain_ms:.4f} bound_ms {b_ms:.6f} ({b_by}) "
           f"library_ms none (no single PyTorch call computes p and the counts)")
-    return kernel_us / 1e3, plain_ms, b_ms, b_by, max_err
+    return kernel_ms, plain_ms, b_ms, b_by, max_err
 
 
 def check_ffn_backward(torch, moe_gemm, kernel_ops, dtype_name, gen):
@@ -309,14 +403,15 @@ def check_ffn_backward(torch, moe_gemm, kernel_ops, dtype_name, gen):
         err = (got - want).abs()
         if not bool((err <= rtol * want.abs() + atol_frac * want.abs().max()).all()):
             raise AssertionError(f"K2 backward product {name} {dtype_name} disagrees with its plain version")
-        k_ms = time_ms(torch, moe_gemm.grouped_matmul, [(a, b)], reps=3)
+        k_ms = time_ms(torch, moe_gemm.grouped_matmul, [(a, b)], reps=10)
         p_ms = time_ms(torch, mm_plain, [(a, b)], reps=3)
-        lib_ms = time_ms(torch, torch.bmm, [(a, b)], reps=3)
+        lib_ms = time_ms(torch, torch.bmm, [(a, b)], reps=10)
         m_, k_, n_ = a.shape[1], a.shape[2], b.shape[2]
         b_ms, b_by = bound("grouped_matmul", (e, m_, n_, k_), dtype_name)
         times[name] = (k_ms, p_ms, lib_ms, b_ms, b_by)
-        print(f"  K2 {name:16s} {dtype_name:8s} (E,M,K,N)=({e},{m_},{k_},{n_}) A {'T' if a.stride(-1) != 1 else 'N'} "
-              f"B {'T' if b.stride(-1) != 1 else 'N'}: max_abs_err {float(err.max()):.3e} "
+        pair = moe_gemm.tma_layout(a, b)[0] if dt == torch.bfloat16 else ("-", "-")
+        print(f"  K2 {name:16s} {dtype_name:8s} (E,M,K,N)=({e},{m_},{k_},{n_}) A {pair[0]:2s} B {pair[1]:2s}: "
+              f"max_abs_err {float(err.max()):.3e} "
               f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms (torch.bmm) {lib_ms:.4f} "
               f"bound_ms {b_ms:.4f} ({b_by})")
 
@@ -375,7 +470,7 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.core import ref_bip
     from repro_torch.data import SyntheticBatchStream, make_batches
-    from repro_torch.kernels import bip_admm, moe_gemm
+    from repro_torch.kernels import bip_admm, moe_gemm, nvcc
     from repro_torch.kernels import ops as kernel_ops
     from repro_torch.models import Model, moe
     from repro_torch.optim import from_model_config, linear_warmup_cosine
@@ -402,8 +497,14 @@ def main() -> int:
     print(f"[build] nvcc sm_90a, in parallel: "
           + ", ".join(f"{n} {t:.2f} s" for n, t in build_s.items())
           + f"; wall {time.perf_counter() - t0:.2f} s")
+    for source in build_s:
+        for line in nvcc.ptxas_report(source):
+            print(f"  ptxas {source}: {line}")
+    lib = moe_gemm.build()
+    print(f"  bf16 GEMM dynamic shared memory per block: K1 {lib.moe_gemm_bf16_smem_bytes(1)} B, "
+          f"K2 {lib.moe_gemm_bf16_smem_bytes(0)} B (the ring of stages)")
 
-    # -- 2. kernels against their plain versions, and their times
+    # -- 2. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     print("[kernels] kernel vs plain PyTorch version")
     err = {}
@@ -412,36 +513,6 @@ def main() -> int:
             errs = check_kernels(torch, moe_gemm, shape, dtype_name, gen)
             if shape == SMOKE and dtype_name == "bfloat16":
                 err = errs
-    e_, c_, d_, f_ = SMOKE
-    layers = []  # one weight set per layer of the model, so L2 stays cold
-    for _ in range(8):
-        x = torch.randn(e_, c_, d_, device="cuda", generator=gen).bfloat16()
-        wg = (torch.randn(e_, d_, f_, device="cuda", generator=gen) / d_**0.5).bfloat16()
-        wu = (torch.randn(e_, d_, f_, device="cuda", generator=gen) / d_**0.5).bfloat16()
-        wd = (torch.randn(e_, f_, d_, device="cuda", generator=gen) / f_**0.5).bfloat16()
-        h = moe_gemm.grouped_gated_ffn_in_plain(x, wg, wu)
-        layers.append((x, wg, wu, wd, h, torch.cat([wg, wu], dim=-1)))
-    timings = {
-        "grouped_gated_ffn_in": (
-            time_ms(torch, moe_gemm.grouped_gated_ffn_in, [l[:3] for l in layers]),
-            time_ms(torch, moe_gemm.grouped_gated_ffn_in_plain, [l[:3] for l in layers]),
-            # one bmm over [wg | wu]: both products, without the SwiGLU epilogue
-            time_ms(torch, torch.bmm, [(l[0], l[5]) for l in layers]),
-        ),
-        "grouped_matmul": (
-            time_ms(torch, moe_gemm.grouped_matmul, [(l[4], l[3]) for l in layers]),
-            time_ms(torch, moe_gemm.grouped_matmul_plain, [(l[4], l[3]) for l in layers]),
-            time_ms(torch, torch.bmm, [(l[4], l[3]) for l in layers]),
-        ),
-    }
-    w32 = [(l[1].float(), l[2].float(), l[3].float()) for l in layers]
-    cast_ms = time_ms(torch, lambda a, b, c: (a.bfloat16(), b.bfloat16(), c.bfloat16()), w32)
-    for name, (k_ms, p_ms, lib_ms) in timings.items():
-        b_ms, b_by = bound(name, SMOKE, "bfloat16")
-        print(f"  {name:22s} bf16 E,C,D,F={SMOKE}: kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-              f"library_ms (torch.bmm) {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
-    print(f"  per-call fp32->bf16 cast of one layer's expert weights: {cast_ms:.4f} ms")
-    del layers, w32
 
     # -- 3. one full-width MoE layer: kernel path vs plain einsum path
     cfg = configs.get("minimind_moe_16e")
@@ -527,6 +598,17 @@ def main() -> int:
     cap = moe.expert_capacity(n_slots * chunk, cfg)
     serve_shape = (cfg.routing.n_experts, cap, cfg.d_model, cfg.moe_d_ff)
     del eng, params
+    # K1/K2 times at the serving shape, taken after the serve run so that no
+    # profiler session comes before it
+    print(f"[kernels] K1/K2 times at the serving shape E,C,D,F={SMOKE}")
+    timings = time_forward(torch, moe_gemm, SMOKE, gen, n_sets=8)  # one set per layer
+    print_forward_times(timings, SMOKE)
+    e_, c_, d_, f_ = SMOKE
+    w32 = [tuple(torch.randn(e_, *s, device="cuda", generator=gen) for s in ((d_, f_), (d_, f_), (f_, d_)))
+           for _ in range(8)]
+    cast_ms = time_ms(torch, lambda a, b, c: (a.bfloat16(), b.bfloat16(), c.bfloat16()), w32)
+    print(f"  per-call fp32->bf16 cast of one layer's expert weights: {cast_ms:.4f} ms")
+    del w32
 
     # -- 6. the BIP-ADMM dual kernel (K3) against its plain version
     print("[K3] kernel vs plain PyTorch version (p and counts must be bit-equal)")
@@ -534,9 +616,12 @@ def main() -> int:
 
     # -- 7. the expert-FFN forward and backward at the training shape
     print(f"[ffn] K1/K2 forward and the backward uses of K2 at the training shape E,C,D,F={TRAIN}")
-    for dtype_name in ("bfloat16", "float32"):
-        check_kernels(torch, moe_gemm, TRAIN, dtype_name, gen)
-        check_ffn_backward(torch, moe_gemm, kernel_ops, dtype_name, gen)
+    train_err = check_kernels(torch, moe_gemm, TRAIN, "bfloat16", gen)
+    train_timings = time_forward(torch, moe_gemm, TRAIN, gen, n_sets=2)
+    print_forward_times(train_timings, TRAIN)
+    check_ffn_backward(torch, moe_gemm, kernel_ops, "bfloat16", gen)
+    check_kernels(torch, moe_gemm, TRAIN, "float32", gen)
+    check_ffn_backward(torch, moe_gemm, kernel_ops, "float32", gen)
 
     # -- 8. train minimind-moe-16e at full width through the kernels
     tcfg = dataclasses.replace(cfg, routing=dataclasses.replace(cfg.routing, use_kernel=True))
@@ -599,16 +684,27 @@ def main() -> int:
         make_batches(tcfg, TRAIN_BATCH, TRAIN_SEQ, 2, seed=1, device="cuda")))
 
     record = []
-    for name, line in (("grouped_gated_ffn_in", 41), ("grouped_matmul", 94)):
-        k_ms, p_ms, lib_ms = timings[name]
-        b_ms, b_by = bound(name, serve_shape, "bfloat16")
+    k1, k2 = "grouped_gated_ffn_in", "grouped_matmul"
+    for name, line, use, times, shape, n_launches, max_err in (
+        (k1, 41, "forward, serving shape; launches: serving", timings[k1], serve_shape,
+         launches[k1], err[k1]),
+        (k1, 41, "forward, training shape; launches: training", train_timings[k1], TRAIN,
+         train_launches[k1], train_err[k1]),
+        (k2, 94, "forward, serving shape; launches: serving", timings[k2], serve_shape,
+         launches[k2], err[k2]),
+        (k2, 94, "forward, training shape; launches: training, all nine uses",
+         train_timings[k2], TRAIN, train_launches[k2], train_err[k2]),
+    ):
+        k_ms, p_ms, lib_ms, _ = times
+        b_ms, b_by = bound(name, shape, "bfloat16")
         record.append({
             "name": name,
+            "use": use,
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
             "replaces": f"src/repro/kernels/moe_gemm.py:{line}",
-            "launches": launches[name] + train_launches[name],
-            "max_abs_err": err[name],
+            "launches": n_launches,
+            "max_abs_err": max_err,
             "ms": k_ms,
             "plain_ms": p_ms,
             "bound_ms": b_ms,
@@ -617,6 +713,7 @@ def main() -> int:
         })
     record.append({
         "name": "bip_admm_iteration",
+        "use": "one ADMM iteration, training (n, m, k) = (8192, 16, 4); launches: training",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bip_admm.cu",
         "replaces": "src/repro/kernels/bip_admm.py:43",

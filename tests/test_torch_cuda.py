@@ -8,6 +8,7 @@ installed:
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -25,6 +26,9 @@ from repro_torch.training import init_train_state, make_train_step  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 SHAPES = [(2, 5, 40, 24), (3, 37, 72, 200), (16, 160, 512, 1408)]  # (E, C, D, F)
+# the bf16 GEMM's cases besides SHAPES: a decode step (C=1), ragged C with
+# D and F that are not multiples of 64 (K of K1 and of K2), the training shape
+LAYOUT_SHAPES = SHAPES + [(4, 1, 512, 1408), (2, 136, 200, 264), (16, 2560, 512, 1408)]
 
 
 @pytest.fixture
@@ -68,6 +72,87 @@ def test_kernels_match_plain(cuda_device, shape, dtype, monkeypatch):
     hp, yp = plain_in(x, wg, wu), plain_mm(h, wd)
     torch.testing.assert_close(h.float(), hp.float(), rtol=rtol, atol=atol * hp.abs().max().item())
     torch.testing.assert_close(y.float(), yp.float(), rtol=rtol, atol=atol * yp.abs().max().item())
+
+
+def _with_layout(t, k_axis, major):
+    """t's values with the unit stride on the reduction axis k_axis ('K')
+    or on the other matrix axis ('MN')."""
+    unit = k_axis if major == "K" else 3 - k_axis
+    return t if t.stride(unit) == 1 else t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.parametrize("shape", LAYOUT_SHAPES)
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("a_major", ["K", "MN"])
+@pytest.mark.parametrize("b_major", ["K", "MN"])
+def test_bf16_layout_pairs_match_plain(cuda_device, shape, kernel, a_major, b_major):
+    """The TMA + wgmma kernel reads each operand as it lies, K-major or
+    MN-major: every (A, B) pair of K1 and K2 agrees with the plain version
+    within one bf16 rounding of the fp32 sum (rtol 2^-6 + 2^-8 max|ref|).
+    An MN-major A at a C that is not a multiple of 8 puts a stride of C
+    elements on K, which TMA cannot read: it raises ValueError instead."""
+    x, wg, wu, wd = _inputs(shape, torch.bfloat16, cuda_device, seed=3)
+    if kernel == "K1":
+        a, bs = _with_layout(x, 2, a_major), [_with_layout(w, 1, b_major) for w in (wg, wu)]
+        fn, plain = moe_gemm.grouped_gated_ffn_in, moe_gemm.grouped_gated_ffn_in_plain
+    else:
+        h = moe_gemm.grouped_gated_ffn_in_plain(x, wg, wu)
+        a, bs = _with_layout(h, 2, a_major), [_with_layout(wd, 1, b_major)]
+        fn, plain = moe_gemm.grouped_matmul, moe_gemm.grouped_matmul_plain
+    moe_gemm.reset_launch_counts()
+    if a_major == "MN" and shape[1] > 1 and shape[1] % 8:
+        with pytest.raises(ValueError, match="TMA"):
+            fn(a, *bs)
+        assert moe_gemm.grouped_gated_ffn_in.launches + moe_gemm.grouped_matmul.launches == 0
+        return
+    if shape[1] > 1:  # C=1 leaves size-1 axes, which may count either way
+        assert moe_gemm.tma_layout(a, bs[0])[0] == (a_major, b_major)
+    got = fn(a, *bs)
+    torch.cuda.synchronize()
+    assert moe_gemm.grouped_gated_ffn_in.launches + moe_gemm.grouped_matmul.launches == 1
+    want = plain(a, *bs).float()
+    torch.testing.assert_close(got.float(), want, rtol=2.0**-6, atol=2.0**-8 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("case", ["misaligned_base", "row_stride_24_bytes"])
+def test_bf16_refuses_what_tma_cannot_read(cuda_device, case):
+    """A bf16 CUDA operand that TMA cannot describe raises ValueError before
+    any launch: a base off the 16-byte grain, a row stride of 24 bytes."""
+    x, wg, wu, wd = _inputs((2, 8, 16, 24), torch.bfloat16, cuda_device)
+    if case == "misaligned_base":
+        x = torch.zeros(2 * 8 * 16 + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(2, 8, 16)
+    else:
+        x = torch.zeros(2, 8, 12, dtype=torch.bfloat16, device=cuda_device)[:, :, :10]
+        wg, wu = wg[:, :10], wu[:, :10]
+    moe_gemm.reset_launch_counts()
+    with pytest.raises(ValueError, match="TMA|16-byte"):
+        moe_gemm.grouped_gated_ffn_in(x, wg, wu)
+    w = torch.zeros(2, x.shape[2], 8, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="TMA|16-byte"):
+        moe_gemm.grouped_matmul(x, w)
+    assert moe_gemm.grouped_gated_ffn_in.launches == moe_gemm.grouped_matmul.launches == 0
+
+
+def test_bf16_launch_from_a_thread_without_a_context(cuda_device):
+    """A thread whose first CUDA work is the bf16 kernel (autograd's device
+    thread when the backward starts with K2) has no current context yet;
+    the tensor maps must still encode and the product agree."""
+    x, wg, wu, wd = _inputs((2, 40, 64, 96), torch.bfloat16, cuda_device, seed=7)
+    out = {}
+
+    def run():
+        try:
+            out["y"] = moe_gemm.grouped_matmul(x, wg)
+            torch.cuda.synchronize()
+        except Exception as exc:  # reported by the assertion below
+            out["error"] = exc
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=120)
+    assert not th.is_alive() and "error" not in out, out.get("error")
+    want = moe_gemm.grouped_matmul_plain(x, wg).float()
+    torch.testing.assert_close(out["y"].float(), want, rtol=2.0**-6, atol=2.0**-8 * want.abs().max().item())
 
 
 def test_engine_serves_through_the_kernels(cuda_device):

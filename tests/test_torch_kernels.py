@@ -152,3 +152,90 @@ def test_wrappers_take_transposed_views(shape):
             moe_gemm.grouped_matmul(a, b),
             moe_gemm.grouped_matmul(a.contiguous(), b.contiguous()), rtol=RTOL, atol=ATOL,
         )
+
+
+# The nine K2 products of ops._ExpertFFN (forward, then the eight backward
+# uses in their order) and the (A, B) layout pair the bf16 kernel reads
+# each in: 'K' when the operand's reduction axis has unit stride, 'MN' when
+# its M or N axis has.
+EXPERT_FFN_PRODUCTS = [
+    ("y = h wd", ("K", "MN")),
+    ("g = x wg", ("K", "MN")),
+    ("u = x wu", ("K", "MN")),
+    ("dh = dy wd^T", ("K", "K")),
+    ("dwd = h^T dy", ("MN", "MN")),
+    ("dx_g = dg wg^T", ("K", "K")),
+    ("dx_u = du wu^T", ("K", "K")),
+    ("dwg = x^T dg", ("MN", "MN")),
+    ("dwu = x^T du", ("MN", "MN")),
+]
+
+
+def _expert_ffn_operands(monkeypatch, shape=(2, 24, 16, 40)):
+    """The (A, B) operands of every K2 call of one bf16 forward and backward
+    of ops.expert_ffn on CPU tensors, as the autograd Function builds them."""
+    x, wg, wu, wd = (a.to(torch.bfloat16).requires_grad_(True)
+                     for a in _t(*_inputs(shape, seed=4)))
+    dy = torch.from_numpy(np.random.default_rng(5).standard_normal(x.shape).astype(np.float32))
+    calls = []
+
+    def recording(a, b):
+        calls.append((a, b))
+        return moe_gemm.grouped_matmul_plain(a, b)
+
+    monkeypatch.setattr(moe_gemm, "grouped_matmul", recording)
+    ops.expert_ffn(x, wg, wu, wd).backward(dy.to(torch.bfloat16))
+    return calls
+
+
+@pytest.mark.parametrize("i", range(len(EXPERT_FFN_PRODUCTS)),
+                         ids=[name for name, _ in EXPERT_FFN_PRODUCTS])
+def test_tma_layout_of_expert_ffn_products(monkeypatch, i):
+    """Every operand the expert FFN hands to K2 is taken by the bf16
+    kernel's TMA check as it lies (no copy), in the layout pair the kernel
+    is instantiated for: K-major x/h/dy/dg/du and MN-major weights in the
+    forward, K-major transposed weights in dh and dx, MN-major transposed
+    activations in the weight gradients. Widths are multiples of 8."""
+    calls = _expert_ffn_operands(monkeypatch)
+    assert len(calls) == len(EXPERT_FFN_PRODUCTS)
+    a, b = calls[i]
+    pair, sa, sb = moe_gemm.tma_layout(a, b)
+    assert pair == EXPERT_FFN_PRODUCTS[i][1]
+    assert sa == a.stride() and sb == b.stride()  # no size-1 axis: strides pass as they are
+
+
+@pytest.mark.parametrize(
+    "case", ["row_stride_24_bytes", "no_unit_stride", "misaligned_base", "expert_stride"]
+)
+def test_tma_layout_refuses(case):
+    """What TMA cannot describe raises ValueError naming the constraint: a
+    non-unit stride that is not a multiple of 16 bytes (12 bf16 values =
+    24 bytes), no unit stride among the last two axes, a base address off
+    the 16-byte grain, and an expert stride off it."""
+    bf = torch.bfloat16
+    a, b = torch.zeros(2, 8, 16, dtype=bf), torch.zeros(2, 16, 8, dtype=bf)
+    if case == "row_stride_24_bytes":
+        a = torch.zeros(2, 8, 12, dtype=bf)[:, :, :10]
+        b = torch.zeros(2, 10, 8, dtype=bf)
+    elif case == "no_unit_stride":
+        a = torch.zeros(2, 8, 32, dtype=bf)[:, :, ::2]
+    elif case == "misaligned_base":
+        a = torch.zeros(2 * 8 * 16 + 1, dtype=bf)[1:].view(2, 8, 16)
+    else:
+        a = torch.zeros(2, 8 * 16 + 4, dtype=bf)[:, :128].view(2, 8, 16)
+    with pytest.raises(ValueError, match="TMA|16-byte"):
+        moe_gemm.tma_layout(a, b)
+
+
+@pytest.mark.parametrize("c", [1, 2])
+def test_tma_layout_takes_size_one_axes(c):
+    """A decode step's C=1 (and one expert) leaves axes of size 1, whose
+    strides address nothing: they are accepted in either view, and given
+    strides that TMA takes."""
+    bf = torch.bfloat16
+    x, w, dy = torch.zeros(1, c, 16, dtype=bf), torch.zeros(1, 16, 24, dtype=bf), torch.zeros(1, c, 24, dtype=bf)
+    for a, b in ((x, w), (x.transpose(1, 2), dy), (dy, w.transpose(1, 2))):
+        pair, sa, sb = moe_gemm.tma_layout(a, b)
+        assert all(s % 8 == 0 for s in sa if s != 1) and all(s % 8 == 0 for s in sb if s != 1)
+        assert 1 in sa and 1 in sb
+
