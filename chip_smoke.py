@@ -25,11 +25,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      (torch.bmm) device times (profiler) beside the bound the card could
      reach, the kernel's time per call by CUDA events, and the per-call
      fp32->bf16 cast of one layer's expert weights;
-  6. the BIP-ADMM dual kernel (K3) against its plain version at
-     (n, m, k) = (8192, 16, 4), (1000, 64, 8) and a ragged n, with the
-     default and with refined per-expert bounds (p and counts bit-equal),
-     the full dual update against the plain-version loop (bit-equal) and
-     the exact sort-based dual (within 2/512 + 5e-3); its time and bound;
+  6. the BIP-ADMM dual kernel (K3): the whole dual update, one launch of
+     one thread-block cluster, bit-equal to the plain torch loop at
+     (n, m, k, T) = (8192, 16, 4, 4), (8191, 16, 4, 4), (8192, 64, 8, 14),
+     (1000, 64, 8, 4), (4096, 128, 2, 4) and (512, 16, 12, 3), refine
+     0/1/2, cold and warm starts, and at refine 1 (the default) within
+     2/512 + 5e-3 of the exact sort-based dual; its
+     single-pass mode (p and counts) bit-equal at (8192, 16, 4),
+     (1000, 64, 8) and a ragged n, default and refined bounds; at the 16e
+     and 64e training shapes the cluster size and shared bytes used, the
+     device time per update (profiler) and per call (CUDA events), the
+     plain loop's time, the whole-update bound and a split of the device
+     time into iterations and refine passes;
   7. K1/K2 forward at the training shape (E=16, C=2560, D=512, F=1408),
      every layout pair in bf16, and their times as in phase 5; the
      expert-FFN backward through K2 at that shape, bf16 and fp32: each
@@ -40,9 +47,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      data, batch 16 x 512, bip with T=4, use_kernel=True, AdamW with a
      linear-warmup cosine schedule) for 20 steps through train_loop: the
      loss must be finite and fall and AvgMaxVio stay <= 1.0; the K1/K2/K3
-     launches per step must be exactly 8 / 8+64 / 64;
+     launches per step must be exactly 8 / 8+64 / 8 (K3: one whole dual
+     update per MoE layer);
   9. a torch.profiler trace of two training steps: device busy share,
-     launches per step, K1 and K2 device time per step, the top kernels.
+     kernel launches per step, K1, K2 and K3 device time per step, the top
+     kernels;
+ 10. train minimind-moe-64e at full width (64 experts top-8, bip T=14) for
+     5 steps, batch 16 x 512: launches per step (K3 8), finite losses,
+     step p50 and AvgMaxVio.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
 that outlives it (nvcc and nvidia-smi run to completion).
@@ -71,7 +83,14 @@ RAGGED = (16, 37, 512, 1400)
 PAIRS = (("K", "MN"), ("K", "K"), ("MN", "MN"), ("MN", "K"))
 TRAIN = (16, 2560, 512, 1408)  # (E, C, D, F): minimind-16e training, 16 x 512 tokens
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 512, 20
+TRAIN64_STEPS = 5
 K3_CASES = ((8192, 16, 4), (1000, 64, 8), (8191, 16, 4))  # (n, m, k); 8191: ragged
+# (n, m, k, T) of the fused dual update: 16e's training shape, a ragged n,
+# 64e's (T = 14), a short m = 64 one, arctic's m = 128, a k past the
+# kernel's register list (p by distinct-value sweeps)
+DUAL_CASES = ((8192, 16, 4, 4), (8191, 16, 4, 4), (8192, 64, 8, 14), (1000, 64, 8, 4),
+              (4096, 128, 2, 4), (512, 16, 12, 3))
+DUAL_TIMED = {"16e": (8192, 16, 4, 4), "64e": (8192, 64, 8, 14)}  # refine 1, the default
 N_BINS = 512
 DUAL_BOUND = 2.0 / 512 + 5e-3  # the reference's histogram-resolution bound
 # end-to-end bf16 gradients: each product rounds once to bf16, and the
@@ -251,13 +270,15 @@ def print_forward_times(timings, shape):
               f"({b_by}); kernel per call by CUDA events {call_ms:.4f} ms")
 
 
-# the bf16 GEMM's instantiations by template argument GATED (profiler names)
-GEMM_KERNELS = {"K1": "wgmma_gemm_kernel<true", "K2": "wgmma_gemm_kernel<false"}
+# the kernels by profiler name: the bf16 GEMM's instantiations by template
+# argument GATED, and the fused dual update
+KERNELS = {"K1": "wgmma_gemm_kernel<true", "K2": "wgmma_gemm_kernel<false",
+           "K3": "bip_dual_update_kernel"}
 
 
 def summarize_trace(torch, prof, label, n_steps, wall_us):
-    """Device busy share of the wall time, kernel launches per step, K1 and
-    K2 device time per step, and the kernels with the most device time,
+    """Device busy share of the wall time, kernel launches per step, K1, K2
+    and K3 device time per step, and the kernels with the most device time,
     from a torch.profiler trace."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -272,9 +293,11 @@ def summarize_trace(torch, prof, label, n_steps, wall_us):
           f"device busy {busy_us / 1e3:.2f} ms = {100 * busy_us / wall_us:.1f}% "
           f"(idle {100 - 100 * busy_us / wall_us:.1f}%), "
           f"{len(kernels) / max(n_steps, 1):.0f} kernel launches per step")
-    for k, part in GEMM_KERNELS.items():
+    for k, part in KERNELS.items():
         t = sum(e.time_range.elapsed_us() for e in kernels if part in e.name)
         n = sum(part in e.name for e in kernels)
+        if n == 0:
+            continue
         print(f"  {k} ({part}...>): {t / 1e3 / max(n_steps, 1):.3f} ms of device time per step, "
               f"{n / max(n_steps, 1):.0f} launches per step")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
@@ -302,72 +325,155 @@ def profile_steps(torch, eng, vocab, rng, n_requests=16, prompt=32, gen=8):
 
 
 def k3_bound(n, m, k, n_bins):
-    """Least time for one ADMM iteration: read s, q, lo, hi and write p and
-    the (m, n_bins) fp32 counts once; (k+1) compares per score for p and
-    ceil(log2(n_bins+1)) per score to place it among the edges (fp32)."""
+    """Least time for one ADMM iteration (the single-pass mode): read s, q,
+    lo, hi and write p and the (m, n_bins) fp32 counts once; (k+1) compares
+    per score for p and ceil(log2(n_bins+1)) per score to place it among
+    the edges (fp32)."""
     t_bytes = 4 * (n * m + 3 * m + n + m * n_bins) / PEAK_BYTES
     t_ops = n * m * (k + 1 + math.ceil(math.log2(n_bins + 1))) / PEAK_FLOPS["float32"]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k3_update_bound(n, m, k, n_iters, refine, n_bins):
+    """Least time for the whole dual update: read s and q0 and write q once;
+    per iteration (k+1) compares per score for p and, per histogram pass,
+    ceil(log2(n_bins+1)) per score to place it among the edges (fp32)."""
+    t_bytes = 4 * (n * m + 2 * m) / PEAK_BYTES
+    per_score = (refine + 1) * math.ceil(math.log2(n_bins + 1)) + k + 1
+    t_ops = n_iters * n * m * per_score / PEAK_FLOPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dual_inputs(torch, n, m, gen, warm):
+    logits = torch.randn(n, m, device="cuda", generator=gen) + 1.5 * torch.linspace(2, -2, m, device="cuda")
+    s = torch.softmax(logits, dim=-1)
+    q0 = torch.rand(m, device="cuda", generator=gen) * 0.3 if warm else torch.zeros(m, device="cuda")
+    return s, q0
+
+
+def k3_device_ms(torch, calls, reps=50):
+    """Mean device time of K3 (either mode) for each labelled call,
+    from ONE torch.profiler trace (each further trace of the run risks one
+    that records nothing): the calls of each label run back to back, then
+    the device idles 20 ms, and the kernel's records are split at those
+    gaps (so a record the trace misses moves no boundary)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "bip_dual_update_kernel" in e.name), key=lambda e: e.time_range.start)
+    groups, last_end = [], None
+    for e in ev:
+        if last_end is None or e.time_range.start - last_end > 10_000:  # us
+            groups.append([])
+        groups[-1].append(e.time_range.elapsed_us())
+        last_end = e.time_range.end
+    if len(groups) != len(calls) or any(not reps // 2 <= len(g) <= reps for g in groups):
+        raise AssertionError(f"profiler saw {[len(g) for g in groups]} records of the dual update "
+                             f"for {len(calls)} x {reps} calls")
+    return {label: sum(g) / len(g) / 1e3 for label, g in zip(calls, groups)}
+
+
 def check_k3(torch, bip_admm, kernel_ops, ref_bip, gen):
-    """K3 against its plain version at K3_CASES, default and refined bounds
-    (p and counts bit-equal), and the full dual update against the
-    plain-version loop (bit-equal) and the exact sort-based dual."""
+    """K3's fused dual update against the plain torch loop (bit-equal, one
+    launch per call) and the exact sort-based dual at DUAL_CASES; its
+    single-pass mode (p and counts bit-equal) at K3_CASES; then its times
+    at the 16e and 64e training shapes. Returns the max abs error seen and
+    the timings by shape."""
     from repro_torch.core.ref_bip import expert_kth_index
 
-    plain_iteration = lambda s_, q_, *, top_k, n_bins=N_BINS, lo=None, hi=None: (  # noqa: E731
-        bip_admm.bip_admm_iteration_plain(
-            s_, q_, *bip_admm._bounds(lo, hi, s_.shape[1], s_.device), top_k=top_k, n_bins=n_bins))
     max_err = 0.0
+    for n, m, k, n_iters in DUAL_CASES:
+        plan = bip_admm.device_plan(n, m, N_BINS, torch.device("cuda"))
+        results = []
+        for refine in (0, 1, 2):
+            for warm in (False, True):
+                s, q0 = dual_inputs(torch, n, m, gen, warm)
+                bip_admm.reset_launch_counts()
+                q = kernel_ops.bip_dual_update(s, q0, top_k=k, n_iters=n_iters, refine=refine)
+                torch.cuda.synchronize()
+                launches = bip_admm.bip_dual_update.launches
+                q_plain = bip_admm.bip_dual_update_plain(s, q0, top_k=k, n_iters=n_iters, refine=refine)
+                dual_err = 0.0
+                if refine == 1:  # the default: held to the reference's resolution bound
+                    q_exact, _ = ref_bip.bip_dual_update(s, q0, top_k=k, n_iters=n_iters)
+                    dual_err = float((q - q_exact).abs().max())
+                max_err = max(max_err, float((q - q_plain).abs().max()))
+                ok = torch.equal(q, q_plain) and launches == 1 and dual_err <= DUAL_BOUND
+                results.append(ok)
+                if not ok:
+                    raise AssertionError(
+                        f"K3 fused dual update at (n, m, k, T) = {(n, m, k, n_iters)}, refine {refine}, "
+                        f"warm {warm}: bit-equal {torch.equal(q, q_plain)}, launches {launches}, "
+                        f"|q - exact dual| {dual_err:.3e}")
+        print(f"  bip_dual_update n,m,k,T=({n},{m},{k},{n_iters}): q bit-equal to the plain loop and one "
+              f"launch each (refine 0/1/2 x cold/warm), within {DUAL_BOUND:.3e} of the exact dual "
+              f"(refine 1): {sum(results)}/{len(results)} ok; cluster {plan.cluster} CTAs x {plan.threads} threads, "
+              f"{plan.rows_per_cta} rows per CTA ({plan.resident_rows} in shared memory), "
+              f"{plan.experts_per_owner} experts per owner, {plan.smem_bytes} B shared per CTA")
     for n, m, k in K3_CASES:
-        logits = torch.randn(n, m, device="cuda", generator=gen) + 1.5 * torch.linspace(2, -2, m, device="cuda")
-        s = torch.softmax(logits, dim=-1)
-        q = torch.rand(m, device="cuda", generator=gen) * 0.3
+        s, q = dual_inputs(torch, n, m, gen, True)
         p, cnt = bip_admm.bip_admm_iteration(s, q, top_k=k, n_bins=N_BINS)
-        pp, cp = plain_iteration(s, q, top_k=k)
+        lo, hi = -torch.ones(m, device="cuda"), torch.ones(m, device="cuda")
+        pp, cp = bip_admm.bip_admm_iteration_plain(s, q, lo, hi, top_k=k, n_bins=N_BINS)
         ok = torch.equal(p, pp) and torch.equal(cnt, cp)
         rank = max(expert_kth_index(n, k, m), 0)
-        full = torch.full((m,), 1.0, device="cuda")
-        lo, hi, _ = bip_admm.locate_bin(cnt, rank, N_BINS, -full, full)
+        lo, hi, _ = bip_admm.locate_bin(cnt, rank, N_BINS, lo, hi)
         pr, cr = bip_admm.bip_admm_iteration(s, q, top_k=k, n_bins=N_BINS, lo=lo, hi=hi)
-        ppr, cpr = plain_iteration(s, q, top_k=k, lo=lo, hi=hi)
+        ppr, cpr = bip_admm.bip_admm_iteration_plain(s, q, lo, hi, top_k=k, n_bins=N_BINS)
         ok_refined = torch.equal(pr, ppr) and torch.equal(cr, cpr)
         for got, want in ((p, pp), (cnt, cp), (pr, ppr), (cr, cpr)):
             max_err = max(max_err, float((got - want).abs().max()))
-        q0 = torch.zeros(m, device="cuda")
-        q_kernel = kernel_ops.bip_dual_update(s, q0, top_k=k, n_iters=4)
-        saved = bip_admm.bip_admm_iteration
-        bip_admm.bip_admm_iteration = plain_iteration
-        try:
-            q_plain = kernel_ops.bip_dual_update(s, q0, top_k=k, n_iters=4)
-        finally:
-            bip_admm.bip_admm_iteration = saved
-        q_exact, _ = ref_bip.bip_dual_update(s, q0, top_k=k, n_iters=4)
-        dual_err = float((q_kernel - q_exact).abs().max())
-        ok_dual = torch.equal(q_kernel, q_plain) and dual_err <= DUAL_BOUND
-        print(f"  bip_admm_iteration n,m,k=({n},{m},{k}): p and counts bit-equal: default bounds {ok}, "
-              f"refined bounds {ok_refined}; dual q (T=4) bit-equal to the plain loop "
-              f"{torch.equal(q_kernel, q_plain)}, max |q - exact dual| {dual_err:.3e} "
-              f"(bound {DUAL_BOUND:.3e}) {'ok' if ok and ok_refined and ok_dual else 'FAIL'}")
-        if not (ok and ok_refined and ok_dual):
-            raise AssertionError(f"K3 disagrees with its plain version at {(n, m, k)}")
-    n, m, k = K3_CASES[0]
-    s = torch.softmax(torch.randn(n, m, device="cuda", generator=gen), dim=-1)
-    q = torch.rand(m, device="cuda", generator=gen) * 0.3
-    lo, hi = -torch.ones(m, device="cuda"), torch.ones(m, device="cuda")
-    kernel_ms = device_ms(torch, lambda: bip_admm.bip_admm_iteration(s, q, top_k=k), [()], reps=50,
-                          name_part="bip_admm_iteration_kernel")
-    wrapper_ms = time_ms(torch, lambda: bip_admm.bip_admm_iteration(s, q, top_k=k), [()], reps=50)
-    plain_ms = time_ms(
-        torch, lambda: bip_admm.bip_admm_iteration_plain(s, q, lo, hi, top_k=k, n_bins=N_BINS),
-        [()], reps=20)
-    b_ms, b_by = k3_bound(n, m, k, N_BINS)
-    print(f"  bip_admm_iteration n,m,k=({n},{m},{k}), {N_BINS} bins: kernel_ms {kernel_ms:.4f} "
-          f"(device time, profiler) wrapper_ms {wrapper_ms:.4f} (events around the wrapper: edges, "
-          f"launch, suffix sum) plain_ms {plain_ms:.4f} bound_ms {b_ms:.6f} ({b_by}) "
-          f"library_ms none (no single PyTorch call computes p and the counts)")
-    return kernel_ms, plain_ms, b_ms, b_by, max_err
+        print(f"  bip_admm_iteration (single-pass mode) n,m,k=({n},{m},{k}): p and counts bit-equal: "
+              f"default bounds {ok}, refined bounds {ok_refined} {'ok' if ok and ok_refined else 'FAIL'}")
+        if not (ok and ok_refined):
+            raise AssertionError(f"K3's single-pass mode disagrees with its plain version at {(n, m, k)}")
+    # device times from ONE profiler trace: each shape's update as the
+    # training path calls it (refine 1), with fewer iterations and no
+    # refine pass (the differences price one iteration's p and coarse pass,
+    # and one refine pass, each with its two cluster barriers), and one
+    # single-pass call
+    timings, calls, inputs = {}, {}, {}
+    for label, (n, m, k, n_iters) in DUAL_TIMED.items():
+        s, q0 = dual_inputs(torch, n, m, gen, True)
+        inputs[label] = s, q0
+        for t_, r_ in ((n_iters, 1), (1, 0), (2, 0), (2, 1)):
+            calls[label, t_, r_] = lambda s=s, q0=q0, k=k, t_=t_, r_=r_: kernel_ops.bip_dual_update(
+                s, q0, top_k=k, n_iters=t_, refine=r_)
+        calls[label, "pass"] = lambda s=s, q0=q0, k=k: bip_admm.bip_admm_iteration(s, q0, top_k=k)
+    dev = k3_device_ms(torch, calls)
+    for label, (n, m, k, n_iters) in DUAL_TIMED.items():
+        s, q0 = inputs[label]
+        plan = bip_admm.device_plan(n, m, N_BINS, torch.device("cuda"))
+        call_ms = time_ms(torch, calls[label, n_iters, 1], [()], reps=50)
+        plain_ms = time_ms(torch, lambda: bip_admm.bip_dual_update_plain(s, q0, top_k=k, n_iters=n_iters),
+                           [()], reps=3)
+        b_ms, b_by = k3_update_bound(n, m, k, n_iters, 1, N_BINS)
+        pb_ms, pb_by = k3_bound(n, m, k, N_BINS)
+        kernel_ms = dev[label, n_iters, 1]
+        per_iter = dev[label, 2, 0] - dev[label, 1, 0]
+        per_refine = (dev[label, 2, 1] - dev[label, 2, 0]) / 2
+        timings[label] = (kernel_ms, plain_ms, b_ms, b_by, (n, m, k, n_iters))
+        print(f"  bip_dual_update {label} n,m,k,T=({n},{m},{k},{n_iters}), refine 1, {N_BINS} bins, cluster "
+              f"{plan.cluster}: kernel_ms {kernel_ms:.4f} per update (device time, profiler), "
+              f"{call_ms:.4f} per call (CUDA events, host included), plain_ms {plain_ms:.4f} (the plain "
+              f"loop, events) bound_ms {b_ms:.6f} ({b_by}, whole update) library_ms none (no single "
+              f"PyTorch call computes the dual update); single-pass mode {dev[label, 'pass']:.4f} ms "
+              f"(device time) against its per-pass bound {pb_ms:.6f} ({pb_by})")
+        print(f"  bip_dual_update {label} time split (device time, profiler): T=1 refine 0 "
+              f"{dev[label, 1, 0]:.4f} ms, T=2 refine 0 {dev[label, 2, 0]:.4f} ms, T=2 refine 1 "
+              f"{dev[label, 2, 1]:.4f} ms: one iteration's p and coarse pass {per_iter:.4f} ms, one refine "
+              f"pass {per_refine:.4f} ms, launch, staging and the first barrier "
+              f"{dev[label, 1, 0] - per_iter:.4f} ms")
+    return max_err, timings
 
 
 def check_ffn_backward(torch, moe_gemm, kernel_ops, dtype_name, gen):
@@ -459,6 +565,64 @@ def profile_train_steps(torch, step_fn, state, batches):
     summarize_trace(torch, prof, "profile: training", len(batches), wall_us)
 
 
+def train_full_width(torch, tcfg, n_steps, modules):
+    """Train `tcfg` at full width (seeded random weights, synthetic data,
+    batch TRAIN_BATCH x TRAIN_SEQ, AdamW with linear warmup (5) and cosine)
+    for n_steps through train_loop, counting each kernel's launches. Checks
+    the launches per step (K1 1, K2 1 + 8 backward, K3 1 per MoE layer),
+    finite losses and AvgMaxVio <= 1; over 5 or more steps, a falling loss.
+    Returns (model, state, log, launches)."""
+    Model, SyntheticBatchStream, init_train_state, train_loop, from_model_config, moe_gemm, bip_admm = modules
+    tmodel = Model(tcfg, device="cuda")
+    state = init_train_state(tmodel, 0, from_model_config(tcfg))
+    stream = SyntheticBatchStream(tcfg, TRAIN_BATCH, TRAIN_SEQ, n_steps, device="cuda")
+    moe_gemm.reset_launch_counts()  # count only the main path's launches
+    bip_admm.reset_launch_counts()
+    t_run = time.perf_counter()
+    state, log = train_loop(tmodel, stream, lr=1e-3, warmup_steps=5, total_steps=n_steps, state=state)
+    train_wall = time.perf_counter() - t_run
+    launches = {
+        "grouped_gated_ffn_in": moe_gemm.grouped_gated_ffn_in.launches,
+        "grouped_matmul": moe_gemm.grouped_matmul.launches,
+        "bip_dual_update": bip_admm.bip_dual_update.launches,
+        "bip_admm_iteration": bip_admm.bip_admm_iteration.launches,
+    }
+    n_moe = sum(ffn == "moe" for _, ffn in tcfg.layer_kinds())
+    per_step = {"grouped_gated_ffn_in": n_moe, "grouped_matmul": n_moe * (1 + 8),
+                "bip_dual_update": n_moe, "bip_admm_iteration": 0}
+    summ = log.summary()
+    losses = log.losses
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / summ["mean_step_time"]
+    print(f"[train] {tcfg.name} full width ({tcfg.n_layers} layers, d {tcfg.d_model}, "
+          f"{tcfg.routing.n_experts} experts top-{tcfg.routing.top_k}, moe_d_ff {tcfg.moe_d_ff}, "
+          f"{tcfg.n_shared_experts} shared expert, vocab {tcfg.vocab_size}), fp32 params, bf16 compute, "
+          f"{tcfg.routing.strategy} T={tcfg.routing.bip_iters}, "
+          f"use_kernel=True, AdamW + linear warmup (5) / cosine, lr 1e-3, "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {n_steps} steps, synthetic data")
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    print(f"  wall {train_wall:.3f} s, first step {1e3 * log.step_times[0]:.1f} ms, steady step "
+          f"p50 {1e3 * summ['step_time_p50']:.2f} ms p99 {1e3 * summ['step_time_p99']:.2f} ms "
+          f"mean {1e3 * summ['mean_step_time']:.2f} ms, tokens/s {tokens_per_s:.1f}")
+    print(f"  AvgMaxVio {summ['AvgMaxVio']:.4f} SupMaxVio {summ['SupMaxVio']:.4f}; per-layer AvgMaxVio "
+          f"{[round(v, 4) for v in summ['AvgMaxVio_per_layer']]}; last step per-layer MaxVio "
+          f"{[round(float(v), 4) for v in log.max_vio_steps[-1]]}")
+    print(f"  kernel launches in this run: {launches}; per step "
+          f"{ {k: v / n_steps for k, v in launches.items()} } "
+          f"(expected {per_step}: K1 1, K2 1 + 8 backward and K3 1 (the whole dual update) "
+          f"per MoE layer)")
+    for name, want in per_step.items():
+        if launches[name] != want * n_steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in training, "
+                                 f"expected {want * n_steps}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("training produced a non-finite loss")
+    if n_steps >= 5 and not sum(losses[-5:]) / 5 < losses[0]:
+        raise AssertionError(f"loss did not fall: first {losses[0]:.4f}, last five {losses[-5:]}")
+    if not summ["AvgMaxVio"] <= 1.0:
+        raise AssertionError(f"AvgMaxVio {summ['AvgMaxVio']:.4f} > 1.0: routing is not balanced")
+    return tmodel, state, log, launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -479,6 +643,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    modules = (Model, SyntheticBatchStream, init_train_state, train_loop, from_model_config, moe_gemm,
+               bip_admm)
     smi = nvidia_smi_line()
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     print("fp32 matmuls in full fp32: torch.backends.cuda.matmul.allow_tf32 = False")
@@ -611,8 +777,9 @@ def main() -> int:
     del w32
 
     # -- 6. the BIP-ADMM dual kernel (K3) against its plain version
-    print("[K3] kernel vs plain PyTorch version (p and counts must be bit-equal)")
-    k3_ms, k3_plain_ms, k3_b_ms, k3_b_by, k3_err = check_k3(torch, bip_admm, kernel_ops, ref_bip, gen)
+    print("[K3] the fused dual update vs the plain torch loop (q must be bit-equal), and the "
+          "single-pass mode (p and counts bit-equal)")
+    k3_err, k3_timings = check_k3(torch, bip_admm, kernel_ops, ref_bip, gen)
 
     # -- 7. the expert-FFN forward and backward at the training shape
     print(f"[ffn] K1/K2 forward and the backward uses of K2 at the training shape E,C,D,F={TRAIN}")
@@ -625,63 +792,22 @@ def main() -> int:
 
     # -- 8. train minimind-moe-16e at full width through the kernels
     tcfg = dataclasses.replace(cfg, routing=dataclasses.replace(cfg.routing, use_kernel=True))
-    tmodel = Model(tcfg, device="cuda")
-    opt_cfg = from_model_config(tcfg)
-    state = init_train_state(tmodel, 0, opt_cfg)
-    stream = SyntheticBatchStream(tcfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, device="cuda")
-    moe_gemm.reset_launch_counts()  # count only the main path's launches
-    bip_admm.reset_launch_counts()
-    t_run = time.perf_counter()
-    state, log = train_loop(tmodel, stream, lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS,
-                            state=state)
-    train_wall = time.perf_counter() - t_run
-    train_launches = {
-        "grouped_gated_ffn_in": moe_gemm.grouped_gated_ffn_in.launches,
-        "grouped_matmul": moe_gemm.grouped_matmul.launches,
-        "bip_admm_iteration": bip_admm.bip_admm_iteration.launches,
-    }
-    n_moe = sum(ffn == "moe" for _, ffn in tcfg.layer_kinds())
-    passes = tcfg.routing.bip_iters * 2  # one coarse + one refine pass per ADMM iteration
-    per_step = {"grouped_gated_ffn_in": n_moe, "grouped_matmul": n_moe * (1 + 8),
-                "bip_admm_iteration": n_moe * passes}
-    summ = log.summary()
-    losses = log.losses
-    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / summ["mean_step_time"]
-    print(f"[train] {tcfg.name} full width ({tcfg.n_layers} layers, d {tcfg.d_model}, "
-          f"{tcfg.routing.n_experts} experts top-{tcfg.routing.top_k}, moe_d_ff {tcfg.moe_d_ff}, "
-          f"{tcfg.n_shared_experts} shared expert, vocab {tcfg.vocab_size}), fp32 params, bf16 compute, "
-          f"{tcfg.routing.strategy} T={tcfg.routing.bip_iters}, "
-          f"use_kernel=True, AdamW + linear warmup (5) / cosine, lr 1e-3, "
-          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps, synthetic data")
-    print(f"  losses {[round(v, 4) for v in losses]}")
-    print(f"  wall {train_wall:.3f} s, first step {1e3 * log.step_times[0]:.1f} ms, steady step "
-          f"p50 {1e3 * summ['step_time_p50']:.2f} ms p99 {1e3 * summ['step_time_p99']:.2f} ms "
-          f"mean {1e3 * summ['mean_step_time']:.2f} ms, tokens/s {tokens_per_s:.1f}")
-    print(f"  AvgMaxVio {summ['AvgMaxVio']:.4f} SupMaxVio {summ['SupMaxVio']:.4f}; per-layer AvgMaxVio "
-          f"{[round(v, 4) for v in summ['AvgMaxVio_per_layer']]}; last step per-layer MaxVio "
-          f"{[round(float(v), 4) for v in log.max_vio_steps[-1]]}")
-    print(f"  kernel launches in this run: {train_launches}; per step "
-          f"{ {k: v / TRAIN_STEPS for k, v in train_launches.items()} } "
-          f"(expected {per_step}: K1 1 and K2 1 + 8 backward per MoE layer, "
-          f"K3 {passes} per MoE layer)")
-    for name, want in per_step.items():
-        if train_launches[name] != want * TRAIN_STEPS:
-            raise AssertionError(f"{name}: {train_launches[name]} launches in training, "
-                                 f"expected {want * TRAIN_STEPS}")
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError("training produced a non-finite loss")
-    if not sum(losses[-5:]) / 5 < losses[0]:
-        raise AssertionError(f"loss did not fall: first {losses[0]:.4f}, last five {losses[-5:]}")
-    if not summ["AvgMaxVio"] <= 1.0:
-        raise AssertionError(f"AvgMaxVio {summ['AvgMaxVio']:.4f} > 1.0: routing is not balanced")
+    tmodel, state, log, train_launches = train_full_width(torch, tcfg, TRAIN_STEPS, modules)
     test_ppl = evaluate_ppl(tmodel, state, make_batches(tcfg, TRAIN_BATCH, TRAIN_SEQ, 2,
                                                         split="test", device="cuda"))
     print(f"  test perplexity (2 held-out batches) {test_ppl:.2f}")
 
     # -- 9. where a training step's time goes (two more steps, traced)
-    step_fn = make_train_step(tmodel, opt_cfg, linear_warmup_cosine(1e-3, 5, TRAIN_STEPS))
+    step_fn = make_train_step(tmodel, from_model_config(tcfg), linear_warmup_cosine(1e-3, 5, TRAIN_STEPS))
     profile_train_steps(torch, step_fn, state, list(
         make_batches(tcfg, TRAIN_BATCH, TRAIN_SEQ, 2, seed=1, device="cuda")))
+    del tmodel, state, step_fn
+    torch.cuda.empty_cache()
+
+    # -- 10. a few steps of minimind-moe-64e at full width
+    cfg64 = configs.get("minimind_moe_64e")
+    cfg64 = dataclasses.replace(cfg64, routing=dataclasses.replace(cfg64.routing, use_kernel=True))
+    _, _, _, train64_launches = train_full_width(torch, cfg64, TRAIN64_STEPS, modules)
 
     record = []
     k1, k2 = "grouped_gated_ffn_in", "grouped_matmul"
@@ -711,20 +837,25 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": lib_ms,
         })
-    record.append({
-        "name": "bip_admm_iteration",
-        "use": "one ADMM iteration, training (n, m, k) = (8192, 16, 4); launches: training",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/bip_admm.cu",
-        "replaces": "src/repro/kernels/bip_admm.py:43",
-        "launches": train_launches["bip_admm_iteration"],
-        "max_abs_err": k3_err,
-        "ms": k3_ms,
-        "plain_ms": k3_plain_ms,
-        "bound_ms": k3_b_ms,
-        "bound_by": k3_b_by,
-        "library_ms": None,
-    })
+    for label, n_launches in (("16e", train_launches["bip_dual_update"]),
+                              ("64e", train64_launches["bip_dual_update"])):
+        k_ms, p_ms, b_ms, b_by, (n, m, k, n_iters) = k3_timings[label]
+        record.append({
+            "name": "bip_dual_update",
+            "use": f"the whole BIP dual update of one MoE layer, minimind-moe-{label} training "
+                   f"(n, m, k, T, refine) = ({n}, {m}, {k}, {n_iters}, 1); launches: "
+                   f"{label} training",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bip_admm.cu",
+            "replaces": "src/repro/kernels/bip_admm.py:43",
+            "launches": n_launches,
+            "max_abs_err": k3_err,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({

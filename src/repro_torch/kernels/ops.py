@@ -1,6 +1,7 @@
 """Public wrappers around the port's kernels (model-path entry points).
 
-    bip_dual_update(s, q0, top_k, n_iters)   T ADMM dual iterations on K3
+    bip_dual_update(s, q0, top_k, n_iters)   T ADMM dual iterations: one K3
+                                             launch (bip_admm.py)
     expert_ffn(x, w_gate, w_up, w_down)      the grouped SwiGLU FFN on K1/K2,
                                              differentiable: its backward is
                                              eight K2 launches over views
@@ -9,48 +10,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.ref_bip import expert_kth_index
-from repro_torch.kernels import bip_admm, moe_gemm
+from repro_torch.kernels import moe_gemm
+from repro_torch.kernels.bip_admm import bip_dual_update  # noqa: F401  (re-exported)
 
 Tensor = torch.Tensor
-
-
-def bip_dual_update(
-    s: Tensor,
-    q0: Tensor,
-    *,
-    top_k: int,
-    n_iters: int,
-    n_bins: int = 512,
-    refine: int = 1,
-) -> Tensor:
-    """T fused ADMM iterations on the (n, m) score matrix. Returns q (m,).
-
-    A port of the reference's single-device form (src/repro/kernels/ops.py,
-    bip_dual_update without axis_names). Each iteration runs one coarse
-    histogram pass over [-1, 1] plus `refine` passes over the located bin
-    (per-expert bounds), every pass one launch of the K3 kernel; the bin
-    location and the interpolation are plain torch, on the device, with no
-    host sync. Capacity slack (rank past the column) returns zeros.
-    """
-    n, m = s.shape
-    rank = expert_kth_index(n, top_k, m)
-    if rank < 0:  # capacity slack: the constraint never binds
-        return torch.zeros_like(q0)
-    q = q0.float()
-    for _ in range(n_iters):
-        lo = torch.full((m,), bip_admm.LO, dtype=torch.float32, device=s.device)
-        hi = torch.full((m,), bip_admm.HI, dtype=torch.float32, device=s.device)
-        for _pass in range(refine + 1):
-            _p, cnt = bip_admm.bip_admm_iteration(
-                s, q, top_k=top_k, n_bins=n_bins, lo=lo, hi=hi
-            )
-            cur_lo, cur_hi = lo, hi  # the bounds this cnt was computed over
-            bin_lo, bin_hi, found = bip_admm.locate_bin(cnt, rank, n_bins, lo, hi)
-            lo = torch.where(found, bin_lo, lo)
-            hi = torch.where(found, bin_hi, hi)
-        q = bip_admm.q_from_histogram(cnt, rank, n_bins, lo=cur_lo, hi=cur_hi)
-    return q
 
 
 class _ExpertFFN(torch.autograd.Function):

@@ -1,5 +1,6 @@
-"""Port vs reference: the BIP-ADMM dual iteration (K3), its dual update, the
-kernel path of route(), and the differentiable expert FFN (K1/K2).
+"""Port vs reference: the BIP-ADMM dual iteration (K3), its dual update and
+the fused kernel's launch plan, the kernel path of route(), and the
+differentiable expert FFN (K1/K2).
 
 The same numpy inputs go to the reference (its Pallas kernels in interpret
 mode on the CPU, as its own tests run them) and to the port, whose wrappers
@@ -112,28 +113,90 @@ def test_bin_location_matches_reference(rank):
     )
 
 
-@pytest.mark.parametrize(
-    "seed,n,m,k,t",
-    [(0, 512, 16, 4, 4), (1, 1000, 64, 8, 2), (2, 257, 4, 1, 4), (3, 128, 16, 2, 2)],
-)
-def test_dual_update_matches_reference(seed, n, m, k, t):
+# (seed, n, m, k, T, warm start, refine)
+DUAL_CASES = [
+    (0, 512, 16, 4, 4, False, 1),
+    (1, 1000, 64, 8, 2, False, 1),
+    (2, 257, 4, 1, 4, False, 1),
+    (3, 128, 16, 2, 2, False, 1),
+    (4, 1000, 64, 8, 14, False, 1),  # minimind-moe-64e's own T
+    (5, 512, 128, 2, 4, False, 1),   # arctic's m
+    (6, 512, 16, 4, 4, True, 1),
+    (7, 1000, 64, 8, 14, True, 1),
+    (8, 512, 128, 2, 4, True, 1),
+    (9, 512, 16, 4, 4, False, 0),
+    (10, 1000, 64, 8, 4, True, 0),
+    (11, 512, 16, 4, 4, True, 2),
+    (12, 257, 4, 1, 4, False, 2),
+]
+
+
+@pytest.mark.parametrize("seed,n,m,k,t,warm,refine", DUAL_CASES)
+def test_dual_update_matches_reference(seed, n, m, k, t, warm, refine):
+    """The plain loop (what the CUDA kernel is held bit-equal to on the card)
+    within 1e-6 of the reference's bip_dual_update (Pallas in interpret
+    mode), cold or warm-started, with 0-2 refine passes; both within the
+    histogram-resolution bound of the exact sort-based dual. On a CPU tensor
+    ops.bip_dual_update is the plain loop."""
     s = _scores(seed, n, m)
-    q0 = np.zeros(m, np.float32)
-    qj = np.asarray(jax_ops.bip_dual_update(jnp.asarray(s), jnp.asarray(q0), top_k=k, n_iters=t))
-    qt = ops.bip_dual_update(_t(s), _t(q0), top_k=k, n_iters=t).numpy()
+    q0 = (np.random.default_rng(seed + 100).uniform(0, 0.3, m) if warm else np.zeros(m)).astype(
+        np.float32)
+    qj = np.asarray(jax_ops.bip_dual_update(
+        jnp.asarray(s), jnp.asarray(q0), top_k=k, n_iters=t, refine=refine))
+    qt = bip_admm.bip_dual_update_plain(_t(s), _t(q0), top_k=k, n_iters=t, refine=refine)
+    assert torch.equal(ops.bip_dual_update(_t(s), _t(q0), top_k=k, n_iters=t, refine=refine), qt)
     qe = np.asarray(jax_exact_dual(jnp.asarray(s), jnp.asarray(q0), top_k=k, n_iters=t)[0])
-    np.testing.assert_allclose(qt, qj, atol=1e-6)
-    np.testing.assert_allclose(qt, qe, atol=DUAL_BOUND)
+    np.testing.assert_allclose(qt.numpy(), qj, atol=1e-6)
+    np.testing.assert_allclose(qt.numpy(), qe, atol=DUAL_BOUND)
     np.testing.assert_allclose(qj, qe, atol=DUAL_BOUND)
 
 
-def test_dual_update_capacity_slack_is_zero():
-    """k >= m: the capacity index runs past the column, q stays zero."""
+@pytest.mark.parametrize("plain", [False, True])
+def test_dual_update_capacity_slack_is_zero(plain):
+    """k >= m: the capacity index runs past the column, q stays zero (no
+    launch on the card)."""
     s = _scores(4, 8, 4)
-    q = ops.bip_dual_update(_t(s), torch.full((4,), 0.3), top_k=4, n_iters=4)
+    fn = bip_admm.bip_dual_update_plain if plain else ops.bip_dual_update
+    q = fn(_t(s), torch.full((4,), 0.3), top_k=4, n_iters=4)
     np.testing.assert_array_equal(q.numpy(), 0.0)
     qj = jax_ops.bip_dual_update(jnp.asarray(s), jnp.full((4,), 0.3), top_k=4, n_iters=4)
     np.testing.assert_array_equal(np.asarray(qj), 0.0)
+
+
+@pytest.mark.parametrize("n", [1, 257, 8191, 8192, 32768])
+@pytest.mark.parametrize("m", [4, 16, 64, 128])
+def test_launch_plan(m, n):
+    """The fused kernel's plan at 512 bins, for either cluster size: the
+    CTAs cover every row, the owners every expert, the shared memory fits
+    and matches the kernel's layout, and the resident scores' stride is odd."""
+    for cluster in (bip_admm.CLUSTER, bip_admm.PORTABLE_CLUSTER):
+        plan = bip_admm.launch_plan(n, m, 512, cluster)
+        assert plan.cluster == cluster and plan.threads == bip_admm.THREADS
+        assert plan.rows_per_cta == -(-n // cluster)
+        assert plan.rows_per_thread == -(-plan.rows_per_cta // plan.threads)
+        assert plan.experts_per_owner == -(-m // cluster)
+        assert 0 < plan.resident_rows <= plan.rows_per_cta
+        assert plan.s_stride % 2 == 1 and plan.s_stride in (plan.resident_rows, plan.resident_rows + 1)
+        fixed = 7 * m + plan.experts_per_owner * 513 + plan.rows_per_cta
+        assert plan.smem_bytes == 4 * (fixed + m * plan.s_stride) <= bip_admm.MAX_SMEM
+        if 4 * (fixed + m * (plan.rows_per_cta | 1)) <= bip_admm.MAX_SMEM:
+            assert plan.resident_rows == plan.rows_per_cta  # every row stays on chip
+    assert bip_admm.launch_plan(8192, 16, 512).resident_rows == 512  # 16e: 1 row per thread
+
+
+@pytest.mark.parametrize("n,m,n_bins,cluster", [
+    (0, 16, 512, 16),             # no rows
+    (8192, 0, 512, 16),           # no experts
+    (8192, 4096, 512, 16),        # 256 histograms per CTA: over 227 KB
+    (8192, 16, 500, 16),          # not a power of two
+    (8192, 16, 1, 16),
+    (8192, 16, 8192, 16),         # over 4096 bins
+    (8192, 16, 512, 4),           # a cluster of 4
+    (16 * 60000, 16, 512, 16),    # p of a CTA's rows alone over 227 KB
+])
+def test_launch_plan_refuses(n, m, n_bins, cluster):
+    with pytest.raises(ValueError, match="bip_admm"):
+        bip_admm.launch_plan(n, m, n_bins, cluster)
 
 
 def test_kernel_wrapper_cpu_path_and_bad_input(monkeypatch):
@@ -148,13 +211,17 @@ def test_kernel_wrapper_cpu_path_and_bad_input(monkeypatch):
     s = _t(_scores(6, 64, 16))
     p, cnt = bip_admm.bip_admm_iteration(s, torch.zeros(16), top_k=4)
     assert p.shape == (64,) and cnt.shape == (16, 512) and cnt.dtype == torch.float32
-    assert bip_admm.bip_admm_iteration.launches == 0
+    q = ops.bip_dual_update(s, torch.zeros(16), top_k=4, n_iters=2)
+    assert q.shape == (16,) and q.dtype == torch.float32
+    assert bip_admm.bip_admm_iteration.launches == bip_admm.bip_dual_update.launches == 0
     with pytest.raises(TypeError):
         bip_admm.bip_admm_iteration(s.double(), torch.zeros(16), top_k=4)
     with pytest.raises(ValueError):
         bip_admm.bip_admm_iteration(s, torch.zeros(15), top_k=4)
     with pytest.raises(ValueError):
         bip_admm.bip_admm_iteration(s[:0], torch.zeros(16), top_k=4)
+    with pytest.raises(ValueError):
+        ops.bip_dual_update(s, torch.zeros(15), top_k=4, n_iters=2)
 
 
 @pytest.mark.parametrize("sync", ["local", "global"])

@@ -177,8 +177,9 @@ def test_engine_serves_through_the_kernels(cuda_device):
 @pytest.mark.parametrize("n,m,k", [(8192, 16, 4), (1000, 64, 8), (1001, 16, 4)])
 @pytest.mark.parametrize("refined", [False, True])
 def test_admm_kernel_is_bit_equal_to_plain(cuda_device, n, m, k, refined):
-    """K3: p and counts equal to the plain version's, bit for bit (exact
-    order statistic, integer counts, the same edges)."""
+    """K3's single-pass mode (the Pallas function's contract): p and counts
+    equal to the plain version's, bit for bit (exact order statistic,
+    integer counts, the same edges), in one launch."""
     g = torch.Generator(device=cuda_device).manual_seed(n + m)
     s = torch.softmax(torch.randn(n, m, device=cuda_device, generator=g) * 2, dim=-1)
     q = torch.rand(m, device=cuda_device, generator=g) * 0.3
@@ -193,6 +194,93 @@ def test_admm_kernel_is_bit_equal_to_plain(cuda_device, n, m, k, refined):
     assert bip_admm.bip_admm_iteration.launches == 1
     pp, cp = bip_admm.bip_admm_iteration_plain(s, q, lo, hi, top_k=k, n_bins=512)
     assert torch.equal(p, pp) and torch.equal(cnt, cp)
+
+
+# (n, m, k, T): minimind-moe-16e's training shape, a ragged n, 64e's own
+# shape and T, a short one at m = 64, arctic's m = 128, and a k past the
+# register list (p by distinct-value sweeps)
+DUAL_CASES = [(8192, 16, 4, 4), (8191, 16, 4, 4), (8192, 64, 8, 14), (1000, 64, 8, 4),
+              (4096, 128, 2, 4), (512, 16, 12, 3)]
+
+
+def _dual_inputs(dev, n, m, warm, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + n + m)
+    s = torch.softmax(torch.randn(n, m, device=dev, generator=g) * 2, dim=-1)
+    q0 = torch.rand(m, device=dev, generator=g) * 0.3 if warm else torch.zeros(m, device=dev)
+    return s, q0
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("refine", [0, 1, 2])
+@pytest.mark.parametrize("n,m,k,t", DUAL_CASES)
+def test_fused_dual_update_is_bit_equal_to_plain(cuda_device, n, m, k, t, refine, warm, monkeypatch):
+    """K3's fused update: one launch per call, and q equal to the plain
+    torch loop's bit for bit (torch.equal), cold or warm-started, with 0-2
+    refine passes."""
+    s, q0 = _dual_inputs(cuda_device, n, m, warm)
+    plain = bip_admm.bip_dual_update_plain
+
+    def forbidden(*a, **kw):
+        raise AssertionError("a CUDA tensor must not take the plain loop")
+
+    monkeypatch.setattr(bip_admm, "bip_dual_update_plain", forbidden)
+    bip_admm.reset_launch_counts()
+    q = ops.bip_dual_update(s, q0, top_k=k, n_iters=t, refine=refine)
+    torch.cuda.synchronize()
+    assert bip_admm.bip_dual_update.launches == 1
+    assert bip_admm.bip_admm_iteration.launches == 0
+    assert torch.equal(q, plain(s, q0, top_k=k, n_iters=t, refine=refine))
+
+
+def test_fused_dual_update_on_a_cluster_of_8(cuda_device, monkeypatch):
+    """Where a cluster of 16 cannot be placed the wrapper launches 8 CTAs
+    (the portable size): same q, bit for bit."""
+    n, m, k, t = 8192, 64, 8, 14
+    s, q0 = _dual_inputs(cuda_device, n, m, True)
+    plan16 = bip_admm.launch_plan(n, m, 512, 16)
+    index = torch.cuda.current_device()
+    monkeypatch.setitem(bip_admm._placeable, (index, 16, plan16.smem_bytes), False)
+    assert bip_admm.device_plan(n, m, 512, cuda_device).cluster == 8
+    q = ops.bip_dual_update(s, q0, top_k=k, n_iters=t)
+    assert torch.equal(q, bip_admm.bip_dual_update_plain(s, q0, top_k=k, n_iters=t))
+
+
+def test_fused_dual_update_from_a_fresh_thread(cuda_device):
+    """A thread whose first CUDA work is the fused update (autograd's or a
+    server's worker) launches it once and gets the plain loop's q."""
+    s, q0 = _dual_inputs(cuda_device, 8192, 16, True, seed=5)
+    out = {}
+
+    def run():
+        try:
+            out["q"] = ops.bip_dual_update(s, q0, top_k=4, n_iters=4)
+            torch.cuda.synchronize()
+        except Exception as exc:  # reported by the assertion below
+            out["error"] = exc
+
+    bip_admm.reset_launch_counts()
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=120)
+    assert not th.is_alive() and "error" not in out, out.get("error")
+    assert bip_admm.bip_dual_update.launches == 1
+    assert torch.equal(out["q"], bip_admm.bip_dual_update_plain(s, q0, top_k=4, n_iters=4))
+
+
+def test_fused_dual_update_refusals(cuda_device):
+    """Capacity slack returns zeros with no launch; what the kernel refuses
+    (n_bins off a power of two, more expert histograms than a CTA's shared
+    memory holds) raises, with no fallback to the plain loop."""
+    bip_admm.reset_launch_counts()
+    s, q0 = _dual_inputs(cuda_device, 64, 4, True)
+    assert torch.equal(ops.bip_dual_update(s, q0, top_k=4, n_iters=4), torch.zeros_like(q0))
+    s, q0 = _dual_inputs(cuda_device, 1024, 16, False)
+    with pytest.raises(ValueError, match="power of two"):
+        ops.bip_dual_update(s, q0, top_k=4, n_iters=4, n_bins=500)
+    s, q0 = _dual_inputs(cuda_device, 1024, 4096, False)
+    with pytest.raises(ValueError, match="shared"):
+        ops.bip_dual_update(s, q0, top_k=4, n_iters=4)
+    assert bip_admm.bip_dual_update.launches == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -230,7 +318,7 @@ def test_expert_ffn_backward_through_kernels(cuda_device, dtype):
 def test_train_steps_launch_the_kernels(cuda_device):
     """Two reduced-width training steps (16 experts top-4, bip T=4,
     use_kernel=True): per MoE layer and step, K1 once, K2 once forward and
-    eight times backward, K3 twice per ADMM iteration (coarse + refine)."""
+    eight times backward, K3 once (the whole dual update)."""
     full = configs.get("minimind_moe_16e")
     routing = dataclasses.replace(full.routing, use_kernel=True)
     cfg = configs.reduced_for_smoke("minimind_moe_16e", routing=routing, vocab_size=128)
@@ -247,6 +335,7 @@ def test_train_steps_launch_the_kernels(cuda_device):
     n_moe, steps = cfg.n_layers, 2
     assert moe_gemm.grouped_gated_ffn_in.launches == n_moe * steps
     assert moe_gemm.grouped_matmul.launches == n_moe * 9 * steps
-    assert bip_admm.bip_admm_iteration.launches == n_moe * cfg.routing.bip_iters * 2 * steps
+    assert bip_admm.bip_dual_update.launches == n_moe * steps
+    assert bip_admm.bip_admm_iteration.launches == 0
     assert all(np.isfinite(losses))
     assert float(mets["max_vio_per_layer"].max()) < 1.0
