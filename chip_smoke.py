@@ -37,9 +37,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      device time per update (profiler) and per call (CUDA events), the
      plain loop's time, the whole-update bound and a split of the device
      time into iterations and refine passes;
-  7. K1/K2 forward at the training shape (E=16, C=2560, D=512, F=1408),
-     every layout pair in bf16, and their times as in phase 5; the
-     expert-FFN backward through K2 at that shape, bf16 and fp32: each
+  7. K1/K2 forward at the training shape (E=16, C=2560, D=512, F=1408)
+     and at the microbatch shape of phase 11 (C=1280), every layout pair
+     in bf16, and their times as in phase 5; the expert-FFN backward
+     through K2 at both shapes in bf16 (and at C=2560 in fp32): each
      backward product against its plain version on the same inputs, and
      the gradients of all four operands against the same backward run on
      the plain versions; the time of each product;
@@ -54,7 +55,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernels;
  10. train minimind-moe-64e at full width (64 experts top-8, bip T=14) for
      5 steps, batch 16 x 512: launches per step (K3 8), finite losses,
-     step p50 and AvgMaxVio.
+     step p50 and AvgMaxVio;
+ 11. real-text training of minimind-moe-16e at full width: the byte-level
+     BPE tokenizer trained on tests/fixtures/corpus to vocab 6400 (merges,
+     seconds); 12 steps of train_loop on pack_nocross batches of 16 x 512
+     from the sharded loader through the CUDA prefetcher (depth 2), two
+     microbatches per step, bip T=4 with use_kernel=True, an async
+     checkpoint every 6 steps into a temporary directory: exactly 16 / 144
+     / 16 K1/K2/K3 launches per step, finite and falling losses, AvgMaxVio
+     <= 1, step p50/p99 and tokens/s, and per save the device snapshot's
+     ms, the saving step's extra time over the steady p50, the writer's
+     seconds and the file's GB; a fresh Model resumed from step 6 replays
+     steps 6-11 (bit-equal to the first run, or within the bip kernel
+     path's train contract: losses rtol 1e-4, q atol 0.01), and a probe
+     that runs one forward/backward twice from one state names any output
+     that differs; then 4 guarded steps with a NaN injected at step 2 under
+     the 'skip' policy: params, moments, step and q after step 2 bit-equal
+     to those before it, and the guarded step p50 against the unguarded
+     one. The temporary directory is removed.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
 that outlives it (nvcc and nvidia-smi run to completion).
@@ -64,6 +82,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -82,15 +101,19 @@ RAGGED = (16, 37, 512, 1400)
 # forward's; the backward's uses are (K, K) and (MN, MN).
 PAIRS = (("K", "MN"), ("K", "K"), ("MN", "MN"), ("MN", "K"))
 TRAIN = (16, 2560, 512, 1408)  # (E, C, D, F): minimind-16e training, 16 x 512 tokens
+MICRO = (16, 1280, 512, 1408)  # a microbatch of 8 x 512 tokens (phase 11, two microbatches)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 512, 20
+REAL_STEPS, REAL_MICRO, REAL_CKPT_EVERY = 12, 2, 6
+CORPUS = ROOT / "tests" / "fixtures" / "corpus"
 TRAIN64_STEPS = 5
 K3_CASES = ((8192, 16, 4), (1000, 64, 8), (8191, 16, 4))  # (n, m, k); 8191: ragged
 # (n, m, k, T) of the fused dual update: 16e's training shape, a ragged n,
 # 64e's (T = 14), a short m = 64 one, arctic's m = 128, a k past the
 # kernel's register list (p by distinct-value sweeps)
-DUAL_CASES = ((8192, 16, 4, 4), (8191, 16, 4, 4), (8192, 64, 8, 14), (1000, 64, 8, 4),
-              (4096, 128, 2, 4), (512, 16, 12, 3))
-DUAL_TIMED = {"16e": (8192, 16, 4, 4), "64e": (8192, 64, 8, 14)}  # refine 1, the default
+DUAL_CASES = ((8192, 16, 4, 4), (4096, 16, 4, 4), (8191, 16, 4, 4), (8192, 64, 8, 14),
+              (1000, 64, 8, 4), (4096, 128, 2, 4), (512, 16, 12, 3))
+# refine 1, the default; 16e-micro: a microbatch of phase 11
+DUAL_TIMED = {"16e": (8192, 16, 4, 4), "16e-micro": (4096, 16, 4, 4), "64e": (8192, 64, 8, 14)}
 N_BINS = 512
 DUAL_BOUND = 2.0 / 512 + 5e-3  # the reference's histogram-resolution bound
 # end-to-end bf16 gradients: each product rounds once to bf16, and the
@@ -203,63 +226,82 @@ def check_kernels(torch, moe_gemm, shape, dtype_name, gen):
     return out
 
 
-def device_ms(torch, fn, arg_sets, reps=10, name_part=None):
-    """Mean device time of one call: the summed duration of every kernel the
-    calls launch (with `name_part`: of the one kernel whose name holds it,
-    which each call must launch once), from a torch.profiler trace of
-    reps x len(arg_sets) calls. Unlike time_ms it leaves out the host's
-    time between launches, which exceeds the device's for a kernel of a few
-    tens of microseconds."""
+def device_ms(torch, calls, reps=10):
+    """Mean device time of one call for each labelled (fn, arg_sets): the
+    summed duration of every kernel its calls launch, from ONE
+    torch.profiler trace of reps x len(arg_sets) calls per label (a run
+    with many trace sessions has recorded nothing in a later one). Each
+    label's calls run back to back, then the device idles 20 ms, and the
+    kernels' records are split at those gaps. Unlike time_ms it leaves out
+    the host's time between launches, which exceeds the device's for a
+    kernel of a few tens of microseconds."""
     from torch.profiler import ProfilerActivity, profile
 
-    for args in arg_sets:
-        fn(*args)
+    for fn, arg_sets in calls.values():
+        for args in arg_sets:
+            fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for args in arg_sets:
-                fn(*args)
-        torch.cuda.synchronize()
-    calls = reps * len(arg_sets)
-    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-          and (name_part is None or name_part in e.name)]
-    if not ev or (name_part is not None and len(ev) != calls):
-        raise AssertionError(f"profiler saw {len(ev)} device events of {name_part or 'any kernel'} "
-                             f"over {calls} calls")
-    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / calls
+        for fn, arg_sets in calls.values():
+            for _ in range(reps):
+                for args in arg_sets:
+                    fn(*args)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    groups, last_end = [], None
+    for e in ev:
+        if last_end is None or e.time_range.start - last_end > 10_000:  # us
+            groups.append(0.0)
+        groups[-1] += e.time_range.elapsed_us()
+        last_end = e.time_range.end
+    if len(groups) != len(calls):
+        raise AssertionError(f"profiler saw {len(groups)} groups of device events for {len(calls)} "
+                             f"labelled calls")
+    return {label: g / 1e3 / (reps * len(arg_sets))
+            for (label, (_, arg_sets)), g in zip(calls.items(), groups)}
 
 
-def time_forward(torch, moe_gemm, shape, gen, n_sets):
-    """bf16 K1 and K2 forward at `shape`: device ms of the kernel, of its
-    plain version and of torch.bmm, then the kernel's ms per call by CUDA
-    events (host time between launches included). Cycling through n_sets
-    weight sets (one per layer) keeps the weights cold in L2, as the
-    serving path finds them."""
-    e_, c_, d_, f_ = shape
-    sets = []
-    for _ in range(n_sets):
-        x = torch.randn(e_, c_, d_, device="cuda", generator=gen).bfloat16()
-        wg = (torch.randn(e_, d_, f_, device="cuda", generator=gen) / d_**0.5).bfloat16()
-        wu = (torch.randn(e_, d_, f_, device="cuda", generator=gen) / d_**0.5).bfloat16()
-        wd = (torch.randn(e_, f_, d_, device="cuda", generator=gen) / f_**0.5).bfloat16()
-        h = moe_gemm.grouped_gated_ffn_in_plain(x, wg, wu)
-        sets.append((x, wg, wu, wd, h, torch.cat([wg, wu], dim=-1)))
-    k1_args, k2_args = [s[:3] for s in sets], [(s[4], s[3]) for s in sets]
-    return {
-        "grouped_gated_ffn_in": (
-            device_ms(torch, moe_gemm.grouped_gated_ffn_in, k1_args),
-            device_ms(torch, moe_gemm.grouped_gated_ffn_in_plain, k1_args),
+def time_forward(torch, moe_gemm, shapes, gen):
+    """bf16 K1 and K2 forward at each shape of `shapes` ({shape: n_sets}):
+    device ms of the kernel, of its plain version and of torch.bmm (one
+    profiler trace for all), then the kernel's ms per call by CUDA events
+    (host time between launches included). Cycling through n_sets weight
+    sets (one per layer) keeps the weights cold in L2, as the serving path
+    finds them."""
+    calls, k_args = {}, {}
+    for shape, n_sets in shapes.items():
+        e_, c_, d_, f_ = shape
+        sets = []
+        for _ in range(n_sets):
+            x = torch.randn(e_, c_, d_, device="cuda", generator=gen).bfloat16()
+            wg = (torch.randn(e_, d_, f_, device="cuda", generator=gen) / d_**0.5).bfloat16()
+            wu = (torch.randn(e_, d_, f_, device="cuda", generator=gen) / d_**0.5).bfloat16()
+            wd = (torch.randn(e_, f_, d_, device="cuda", generator=gen) / f_**0.5).bfloat16()
+            h = moe_gemm.grouped_gated_ffn_in_plain(x, wg, wu)
+            sets.append((x, wg, wu, wd, h, torch.cat([wg, wu], dim=-1)))
+        k1_args, k2_args = [s[:3] for s in sets], [(s[4], s[3]) for s in sets]
+        k_args[shape] = k1_args, k2_args
+        calls.update({
+            (shape, "k1"): (moe_gemm.grouped_gated_ffn_in, k1_args),
+            (shape, "k1 plain"): (moe_gemm.grouped_gated_ffn_in_plain, k1_args),
             # one bmm over [wg | wu]: both products, without the SwiGLU epilogue
-            device_ms(torch, torch.bmm, [(s[0], s[5]) for s in sets]),
-            time_ms(torch, moe_gemm.grouped_gated_ffn_in, k1_args),
-        ),
-        "grouped_matmul": (
-            device_ms(torch, moe_gemm.grouped_matmul, k2_args),
-            device_ms(torch, moe_gemm.grouped_matmul_plain, k2_args),
-            device_ms(torch, torch.bmm, k2_args),
-            time_ms(torch, moe_gemm.grouped_matmul, k2_args),
-        ),
-    }
+            (shape, "k1 bmm"): (torch.bmm, [(s[0], s[5]) for s in sets]),
+            (shape, "k2"): (moe_gemm.grouped_matmul, k2_args),
+            (shape, "k2 plain"): (moe_gemm.grouped_matmul_plain, k2_args),
+            (shape, "k2 bmm"): (torch.bmm, k2_args),
+        })
+    dev = device_ms(torch, calls)
+    out = {}
+    for shape, (k1_args, k2_args) in k_args.items():
+        out[shape] = {
+            "grouped_gated_ffn_in": (dev[shape, "k1"], dev[shape, "k1 plain"], dev[shape, "k1 bmm"],
+                                     time_ms(torch, moe_gemm.grouped_gated_ffn_in, k1_args)),
+            "grouped_matmul": (dev[shape, "k2"], dev[shape, "k2 plain"], dev[shape, "k2 bmm"],
+                               time_ms(torch, moe_gemm.grouped_matmul, k2_args)),
+        }
+    return out
 
 
 def print_forward_times(timings, shape):
@@ -476,13 +518,13 @@ def check_k3(torch, bip_admm, kernel_ops, ref_bip, gen):
     return max_err, timings
 
 
-def check_ffn_backward(torch, moe_gemm, kernel_ops, dtype_name, gen):
-    """The expert-FFN backward through K2 at the training shape: each
-    product against its plain version on the same inputs (one bf16
-    rounding, as phase 2 holds K1/K2) and timed; then the gradients of all four operands against
+def check_ffn_backward(torch, moe_gemm, kernel_ops, dtype_name, gen, shape=TRAIN):
+    """The expert-FFN backward through K2 at `shape`: each product against
+    its plain version on the same inputs (one bf16 rounding, as phase 2
+    holds K1/K2) and timed; then the gradients of all four operands against
     the same backward run on the plain versions."""
     dt = getattr(torch, dtype_name)
-    e, c, d, f = TRAIN
+    e, c, d, f = shape
     x = torch.randn(e, c, d, device="cuda", generator=gen).to(dt)
     wg = (torch.randn(e, d, f, device="cuda", generator=gen) / d**0.5).to(dt)
     wu = (torch.randn(e, d, f, device="cuda", generator=gen) / d**0.5).to(dt)
@@ -623,6 +665,201 @@ def train_full_width(torch, tcfg, n_steps, modules):
     return tmodel, state, log, launches
 
 
+def named_leaves(tree, prefix=""):
+    """(name, tensor) pairs in the order of `optim.adamw.tree_leaves` (dict
+    keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in named_leaves(tree[k], f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in named_leaves(v, f"{prefix}[{i}]")]
+    return [] if tree is None else [(prefix, tree)]
+
+
+def state_leaves(state):
+    """Every tensor of a TrainState by name: params, both moments, router states."""
+    return named_leaves({"params": state.params, "mu": state.opt_state["mu"],
+                         "nu": state.opt_state["nu"], "router": state.router_states})
+
+
+def determinism_probe(torch, model, state, batch):
+    """One forward/backward twice from one state on one batch, no update:
+    whether the loss and the router states repeat bitwise, and the names of
+    the parameters whose gradients do not."""
+    leaves = named_leaves(state.params)
+    for _, p in leaves:
+        p.requires_grad_(True)
+    runs = []
+    for _ in range(2):
+        loss, (router, _) = model.loss_fn(state.params, batch, state.router_states)
+        grads = torch.autograd.grad(loss, [p for _, p in leaves])
+        runs.append((loss.detach(), named_leaves(router), grads))
+    (l0, r0, g0), (l1, r1, g1) = runs
+    router_equal = all(torch.equal(a, b) for (_, a), (_, b) in zip(r0, r1))
+    differ = [name for (name, _), a, b in zip(leaves, g0, g1) if not torch.equal(a, b)]
+    return bool(torch.equal(l0, l1)), router_equal, differ
+
+
+def train_real_text(torch, tcfg, mods, synthetic_p50):
+    """Phase 11 (see the module doc). Returns the kernels' launches of the
+    12-step run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    (Model, init_train_state, train_loop, make_train_step, from_model_config, linear_warmup_cosine,
+     data, robustness, moe_gemm, bip_admm) = mods
+    shards = data.resolve_shards(str(CORPUS))
+    t0 = time.perf_counter()
+    tok = data.train_tokenizer_from_files(shards, vocab_size=tcfg.vocab_size)
+    tok_s = time.perf_counter() - t0
+    print(f"[real text] tokenizer: byte-level BPE trained on {len(shards)} shards of {CORPUS.name} "
+          f"({sum(p.stat().st_size for p in CORPUS.iterdir())} bytes) to vocab {tok.vocab_size}: "
+          f"{len(tok.merges)} merges in {tok_s:.3f} s (host)")
+
+    def stream():
+        return data.Prefetcher(data.ShardedTextLoader(
+            shards, tok, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, pack_mode="pack_nocross",
+            shuffle_buffer=64, seed=0), depth=2, device="cuda")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    print(f"  checkpoints -> a temporary directory on a disk with {free_gb:.1f} GB free")
+    if free_gb < 9.0:
+        raise AssertionError(f"two 3.7 GB checkpoints need ~8 GB of disk; {free_gb:.1f} GB free")
+    try:
+        model = Model(tcfg, device="cuda")
+        state = init_train_state(model, 0, from_model_config(tcfg))
+        moe_gemm.reset_launch_counts()  # count only this path's launches
+        bip_admm.reset_launch_counts()
+        t_run = time.perf_counter()
+        state, log = train_loop(model, stream(), lr=1e-3, warmup_steps=5, total_steps=REAL_STEPS,
+                                state=state, microbatches=REAL_MICRO, ckpt_dir=tmp,
+                                ckpt_every=REAL_CKPT_EVERY, async_ckpt=True)
+        wall = time.perf_counter() - t_run
+        launches = {
+            "grouped_gated_ffn_in": moe_gemm.grouped_gated_ffn_in.launches,
+            "grouped_matmul": moe_gemm.grouped_matmul.launches,
+            "bip_dual_update": bip_admm.bip_dual_update.launches,
+            "bip_admm_iteration": bip_admm.bip_admm_iteration.launches,
+        }
+        n_moe = sum(ffn == "moe" for _, ffn in tcfg.layer_kinds())
+        per_step = {"grouped_gated_ffn_in": REAL_MICRO * n_moe, "grouped_matmul": REAL_MICRO * n_moe * 9,
+                    "bip_dual_update": REAL_MICRO * n_moe, "bip_admm_iteration": 0}
+        summ = log.summary()
+        losses = log.losses
+        p50 = summ["step_time_p50"]
+        print(f"[real text] {tcfg.name} full width, pack_nocross batches of {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"through the CUDA prefetcher (depth 2), {REAL_MICRO} microbatches per step (C = "
+              f"{MICRO[1]}, K3 n = {TRAIN_BATCH * TRAIN_SEQ // REAL_MICRO}), {tcfg.routing.strategy} "
+              f"T={tcfg.routing.bip_iters}, use_kernel=True, lr 1e-3, warmup 5, {REAL_STEPS} steps, "
+              f"async checkpoint every {REAL_CKPT_EVERY} steps")
+        print(f"  losses {[round(v, 4) for v in losses]}")
+        print(f"  wall {wall:.3f} s (the last writer included), first step {1e3 * log.step_times[0]:.1f} ms, "
+              f"steady step p50 {1e3 * p50:.2f} ms p99 {1e3 * summ['step_time_p99']:.2f} ms, tokens/s "
+              f"{TRAIN_BATCH * TRAIN_SEQ / summ['mean_step_time']:.1f}; the synthetic 16e step of phase 8 "
+              f"(one microbatch) in this call: p50 {1e3 * synthetic_p50:.2f} ms")
+        print(f"  AvgMaxVio {summ['AvgMaxVio']:.4f} SupMaxVio {summ['SupMaxVio']:.4f}; per-layer AvgMaxVio "
+              f"{[round(v, 4) for v in summ['AvgMaxVio_per_layer']]}")
+        print(f"  kernel launches in this run: {launches}; per step "
+              f"{ {k: v / REAL_STEPS for k, v in launches.items()} } (expected {per_step}: each kernel "
+              f"once per MoE layer and microbatch, K2 1 + 8 backward)")
+        for name, want in per_step.items():
+            if launches[name] != want * REAL_STEPS:
+                raise AssertionError(f"{name}: {launches[name]} launches in real-text training, "
+                                     f"expected {want * REAL_STEPS}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError("real-text training produced a non-finite loss")
+        if not sum(losses[-5:]) / 5 < losses[0]:
+            raise AssertionError(f"real-text loss did not fall: first {losses[0]:.4f}, last five {losses[-5:]}")
+        if not summ["AvgMaxVio"] <= 1.0:
+            raise AssertionError(f"AvgMaxVio {summ['AvgMaxVio']:.4f} > 1.0: routing is not balanced")
+        if [rec["step"] for rec in log.checkpoints] != [REAL_CKPT_EVERY, REAL_STEPS]:
+            raise AssertionError(f"saves at {[rec['step'] for rec in log.checkpoints]}")
+        for rec in log.checkpoints:
+            i = rec["step"] - 1
+            after = (f", next step {1e3 * (log.step_times[i + 1] - p50):+.2f} ms over p50"
+                     if i + 1 < len(log.step_times) else "")
+            print(f"  save at step {rec['step']}: device snapshot {rec['snapshot_ms']:.3f} ms (CUDA events), "
+                  f"save call {rec['call_ms']:.2f} ms on the training thread, the saving step "
+                  f"{1e3 * log.step_times[i] + rec['call_ms'] - 1e3 * p50:+.2f} ms over the steady p50"
+                  f"{after}; writer {rec['writer_s']:.2f} s (pinned allocation {rec.get('pin_s', math.nan):.2f} s, "
+                  f"device-to-host copy {rec.get('copy_s', math.nan):.2f} s, then the npz and its manifest), "
+                  f"file {rec['bytes'] / 1e9:.3f} GB")
+
+        # resume from step 6 into a fresh Model and replay steps 6-11
+        for suffix in ("npz", "manifest.json", "data.json"):
+            os.remove(os.path.join(tmp, f"step_{REAL_STEPS}.{suffix}"))
+        model2 = Model(tcfg, device="cuda")
+        t_res = time.perf_counter()
+        state2, log2 = train_loop(model2, stream(), lr=1e-3, warmup_steps=5, total_steps=REAL_STEPS,
+                                  microbatches=REAL_MICRO, ckpt_dir=tmp, ckpt_every=0, resume=True)
+        res_s = time.perf_counter() - t_res
+        replay = losses[REAL_CKPT_EVERY:]
+        la, lb = state_leaves(state), state_leaves(state2)
+        leaves_equal = [torch.equal(a, b) for (_, a), (_, b) in zip(la, lb)]
+        bit_equal = log2.losses == replay and all(leaves_equal) and \
+            state2.opt_state["step"] == state.opt_state["step"]
+        q_a = torch.stack([st["q"] for st in state.router_states])
+        q_b = torch.stack([st["q"] for st in state2.router_states])
+        loss_rel = max(abs(a / b - 1) for a, b in zip(log2.losses, replay))
+        q_err = float((q_a - q_b).abs().max())
+        print(f"[resume] restored step {REAL_CKPT_EVERY} (crc-verified) into a fresh Model and replayed "
+              f"{len(log2.losses)} steps in {res_s:.2f} s: losses {[round(v, 4) for v in log2.losses]}")
+        print(f"  bit-equal to the uninterrupted run: {bit_equal} (losses equal {log2.losses == replay}, "
+              f"{sum(leaves_equal)}/{len(leaves_equal)} state tensors equal, max loss rel diff {loss_rel:.3e}, "
+              f"max |q diff| {q_err:.3e})")
+        probe = data.batch_to_torch(next(iter(data.ShardedTextLoader(
+            shards, tok, batch_size=TRAIN_BATCH // REAL_MICRO, seq_len=TRAIN_SEQ,
+            pack_mode="pack_nocross", seed=0))), "cuda")  # one microbatch
+        same_loss, same_router, differ = determinism_probe(torch, model2, state2, probe)
+        print(f"  determinism probe (one forward/backward twice from one state): loss equal {same_loss}, "
+              f"router states equal {same_router}, gradients that differ: {differ or 'none'}")
+        if not bit_equal and not (loss_rel <= 1e-4 and q_err <= 0.01):
+            raise AssertionError("the resumed run left the bip kernel path's train contract "
+                                 f"(losses rtol 1e-4, q atol 0.01): {loss_rel:.3e}, {q_err:.3e}")
+        del model, state, la, lb, q_a, q_b
+
+        # 4 guarded steps, a NaN at step 2 under 'skip'
+        gstep = make_train_step(model2, from_model_config(tcfg), linear_warmup_cosine(1e-3, 5, REAL_STEPS),
+                                microbatches=REAL_MICRO, guarded=True)
+        guard = robustness.TrainGuard(robustness.GuardConfig(policy="skip"))
+        plan = robustness.FaultPlan.from_specs(["nan_grad@step=2"])
+        pf = stream()
+        it = iter(pf)
+        g_times, kept = [], None
+        for i in range(4):
+            batch = data.batch_to_torch(next(it), "cuda")  # already there: no copy
+            force, lr_scale = guard.controls(i)
+            if i == 2:
+                before = [(n, t.detach().clone()) for n, t in state_leaves(state2)]
+                step_before = state2.opt_state["step"]
+            t0 = time.perf_counter()
+            state2, mets = gstep(state2, batch, (float(plan.nan_fires(i)), float(force), lr_scale))
+            loss = float(mets["loss"])
+            g_times.append(time.perf_counter() - t0)
+            action = guard.observe(i, loss, bool(mets["step_ok"]))
+            if i == 2:
+                after = state_leaves(state2)
+                kept = (action == "skip" and state2.opt_state["step"] == step_before
+                        and [n for n, _ in after] == [n for n, _ in before]
+                        and all(torch.equal(a, b) for (_, a), (_, b) in zip(after, before)))
+                del before, after
+        pf.close()
+        g_p50 = float(np.percentile(g_times[1:], 50))
+        print(f"[guard] 4 guarded steps from the resumed state, nan_grad at step 2, policy skip: events "
+              f"{[(e['kind'], e['step']) for e in guard.events]}; after step 2 the params, both moments, "
+              f"step and q are bit-equal to those before it: {kept}")
+        print(f"  guarded step p50 {1e3 * g_p50:.2f} ms (steps 1-3) against the unguarded {1e3 * p50:.2f} ms "
+              f"(steps 2-11 above); step times {[round(1e3 * t, 2) for t in g_times]} ms")
+        if not kept:
+            raise AssertionError("the NaN-skipped guarded step changed the training state")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        print(f"  removed the temporary checkpoint directory: {not os.path.exists(tmp)}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -631,7 +868,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import configs
+    from repro_torch import configs, data, robustness
     from repro_torch.core import ref_bip
     from repro_torch.data import SyntheticBatchStream, make_batches
     from repro_torch.kernels import bip_admm, moe_gemm, nvcc
@@ -767,7 +1004,7 @@ def main() -> int:
     # K1/K2 times at the serving shape, taken after the serve run so that no
     # profiler session comes before it
     print(f"[kernels] K1/K2 times at the serving shape E,C,D,F={SMOKE}")
-    timings = time_forward(torch, moe_gemm, SMOKE, gen, n_sets=8)  # one set per layer
+    timings = time_forward(torch, moe_gemm, {SMOKE: 8}, gen)[SMOKE]  # one set per layer
     print_forward_times(timings, SMOKE)
     e_, c_, d_, f_ = SMOKE
     w32 = [tuple(torch.randn(e_, *s, device="cuda", generator=gen) for s in ((d_, f_), (d_, f_), (f_, d_)))
@@ -782,11 +1019,16 @@ def main() -> int:
     k3_err, k3_timings = check_k3(torch, bip_admm, kernel_ops, ref_bip, gen)
 
     # -- 7. the expert-FFN forward and backward at the training shape
-    print(f"[ffn] K1/K2 forward and the backward uses of K2 at the training shape E,C,D,F={TRAIN}")
+    print(f"[ffn] K1/K2 forward and the backward uses of K2 at the training shape E,C,D,F={TRAIN} "
+          f"and the microbatch shape {MICRO}")
     train_err = check_kernels(torch, moe_gemm, TRAIN, "bfloat16", gen)
-    train_timings = time_forward(torch, moe_gemm, TRAIN, gen, n_sets=2)
+    micro_err = check_kernels(torch, moe_gemm, MICRO, "bfloat16", gen)
+    fwd_timings = time_forward(torch, moe_gemm, {TRAIN: 2, MICRO: 2}, gen)
+    train_timings, micro_timings = fwd_timings[TRAIN], fwd_timings[MICRO]
     print_forward_times(train_timings, TRAIN)
+    print_forward_times(micro_timings, MICRO)
     check_ffn_backward(torch, moe_gemm, kernel_ops, "bfloat16", gen)
+    check_ffn_backward(torch, moe_gemm, kernel_ops, "bfloat16", gen, shape=MICRO)
     check_kernels(torch, moe_gemm, TRAIN, "float32", gen)
     check_ffn_backward(torch, moe_gemm, kernel_ops, "float32", gen)
 
@@ -808,6 +1050,13 @@ def main() -> int:
     cfg64 = configs.get("minimind_moe_64e")
     cfg64 = dataclasses.replace(cfg64, routing=dataclasses.replace(cfg64.routing, use_kernel=True))
     _, _, _, train64_launches = train_full_width(torch, cfg64, TRAIN64_STEPS, modules)
+    torch.cuda.empty_cache()
+
+    # -- 11. real-text training at full width: packed documents, two
+    # microbatches, async checkpoints, resume and the guarded step
+    real_launches = train_real_text(torch, tcfg, (
+        Model, init_train_state, train_loop, make_train_step, from_model_config, linear_warmup_cosine,
+        data, robustness, moe_gemm, bip_admm), log.summary()["step_time_p50"])
 
     record = []
     k1, k2 = "grouped_gated_ffn_in", "grouped_matmul"
@@ -820,6 +1069,10 @@ def main() -> int:
          launches[k2], err[k2]),
         (k2, 94, "forward, training shape; launches: training, all nine uses",
          train_timings[k2], TRAIN, train_launches[k2], train_err[k2]),
+        (k1, 41, "forward, microbatch shape; launches: real-text training, 2 microbatches",
+         micro_timings[k1], MICRO, real_launches[k1], micro_err[k1]),
+        (k2, 94, "forward, microbatch shape; launches: real-text training, all nine uses",
+         micro_timings[k2], MICRO, real_launches[k2], micro_err[k2]),
     ):
         k_ms, p_ms, lib_ms, _ = times
         b_ms, b_by = bound(name, shape, "bfloat16")
@@ -838,6 +1091,7 @@ def main() -> int:
             "library_ms": lib_ms,
         })
     for label, n_launches in (("16e", train_launches["bip_dual_update"]),
+                              ("16e-micro", real_launches["bip_dual_update"]),
                               ("64e", train64_launches["bip_dual_update"])):
         k_ms, p_ms, b_ms, b_by, (n, m, k, n_iters) = k3_timings[label]
         record.append({

@@ -1,4 +1,5 @@
-"""Carry parameters and router states across from the reference package.
+"""Carry parameters, optimizer and router states across between the
+reference package's layout and the port's, both ways.
 
 The reference keeps each layer-kind position j of the period stacked along
 a leading group axis (`params['stack']['blocks'][j]`, n_groups long, +1 for
@@ -11,13 +12,15 @@ Layer i is group i // period of position i % period.
                                                 reference TrainState leaves -> port TrainState
     load_npz_params(path, cfg, device)          reference npz checkpoint -> port params
     load_npz_tree(path)                         the npz as a tree of CPU tensors
+    stack_blocks(layers, cfg)                   inverse of unstack_blocks
+    train_state_to_tree(state, cfg)             port TrainState -> the reference's
+                                                {'params', 'opt_state', 'router_states'}
 
 Inputs are numpy arrays (e.g. from jax.device_get) or torch tensors; bf16
 leaves arrive as ml_dtypes bfloat16 arrays or as uint16 bit patterns.
 """
 from __future__ import annotations
 
-import json
 from typing import Any, List
 
 import numpy as np
@@ -26,12 +29,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.stack import _group_layout
 
-_SEP = "|"  # path separator of the reference npz format
-
 
 def _to_tensor(a, device="cpu") -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a.to(device)
+    if isinstance(a, torch.Tensor):  # a copy: `a` may be a slice of a group stack
+        return a.to(device, copy=True)
     arr = np.asarray(a)
     if arr.dtype.name == "bfloat16":  # ml_dtypes: reinterpret the 16 bits
         return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16).to(device)
@@ -58,6 +59,64 @@ def unstack_blocks(blocks: List[Any], cfg: ModelConfig) -> List[Any]:
         j, g = i % period, i // period
         out.append(_map(blocks[j], lambda a, g=g: a[g]))
     return out
+
+
+def _zip_map(trees: List[Any], fn):
+    """Map `fn` over the leaves of same-structured trees, leaf tuples in."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _zip_map([t[k] for t in trees], fn) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_zip_map([t[i] for t in trees], fn) for i in range(len(first))]
+    if first is None:
+        return None
+    return fn(trees)
+
+
+def stack_blocks(layers: List[Any], cfg: ModelConfig) -> List[Any]:
+    """One subtree per layer (layer order) -> the reference's per-position
+    stacks: position j stacks layers j, j + period, ... along a new leading
+    group axis (a remainder position holds one more group). The stacks are
+    new tensors on the layers' device."""
+    period, _, _ = _group_layout(cfg)
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"expected {cfg.n_layers} layers, got {len(layers)}")
+    return [
+        _zip_map(layers[j::period], lambda xs: torch.stack([x.detach() for x in xs]))
+        for j in range(period)
+    ]
+
+
+def params_to_tree(params, cfg: ModelConfig):
+    """The port's params (or a tree shaped like them: the Adam moments) ->
+    the reference's params tree, every leaf a new tensor on its device."""
+    if set(params) != {"embed", "stack", "final_norm"}:
+        raise NotImplementedError(f"params with entries {sorted(params)} are not ported yet")
+    clone = lambda t: t.detach().clone()  # noqa: E731
+    return {
+        "embed": _map(params["embed"], clone),
+        "stack": {"blocks": stack_blocks(params["stack"]["layers"], cfg)},
+        "final_norm": _map(params["final_norm"], clone),
+    }
+
+
+@torch.no_grad()
+def train_state_to_tree(state, cfg: ModelConfig):
+    """A port TrainState -> the tree the reference's CheckpointManager
+    saves: {'params', 'opt_state': {'step' (0-d int32), 'mu', 'nu'},
+    'router_states'} in the reference's stacked layout. Every tensor leaf is
+    a new tensor on the state's device, so the tree is a snapshot the next
+    in-place step cannot touch."""
+    opt = state.opt_state
+    return {
+        "params": params_to_tree(state.params, cfg),
+        "opt_state": {
+            "step": torch.tensor(int(opt["step"]), dtype=torch.int32),
+            "mu": params_to_tree(opt["mu"], cfg),
+            "nu": params_to_tree(opt["nu"], cfg),
+        },
+        "router_states": stack_blocks(state.router_states, cfg),
+    }
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
@@ -99,46 +158,11 @@ def train_state_from_numpy(params, opt_state, router_states, cfg: ModelConfig, d
 
 
 def load_npz_tree(path: str):
-    """Read an npz written by the reference's `save_pytree`: leaves under
-    `a{i}`, their 'd:'/'l:'/'t:' paths joined by '|' and dtypes in the
-    `__meta__` JSON, bf16 stored as uint16. Returns dicts/lists of CPU
-    tensors (tuples come back as lists, None leaves as None)."""
-    with np.load(path) as z:
-        meta = json.loads(bytes(z["__meta__"]).decode("utf-8"))
-        items = []
-        for name, info in meta.items():
-            if info["dtype"] == "NoneType":
-                items.append((info["path"], None))
-                continue
-            arr = z[name]
-            if info["dtype"] == "bfloat16":
-                t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-            else:
-                t = torch.from_numpy(np.ascontiguousarray(arr).copy())
-            items.append((info["path"], t))
-    root: Any = None
-    for path, leaf in items:
-        parts = [seg.split(":", 1) for seg in path.split(_SEP)]
-        if root is None:
-            root = {} if parts[0][0] == "d" else []
-        node = root
-        for depth, (tag, key) in enumerate(parts):
-            k = key if tag == "d" else int(key)
-            last = depth == len(parts) - 1
-            if isinstance(node, list):
-                while len(node) <= k:
-                    node.append(None)
-            if last:
-                node[k] = leaf
-                break
-            nxt_tag = parts[depth + 1][0]
-            if isinstance(node, dict):
-                node = node.setdefault(k, {} if nxt_tag == "d" else [])
-            else:
-                if node[k] is None:
-                    node[k] = {} if nxt_tag == "d" else []
-                node = node[k]
-    return root
+    """Read an npz written by either package's `save_pytree` as a tree of
+    CPU tensors (dicts/lists/tuples; None leaves as None)."""
+    from repro_torch.checkpoint.store import load_pytree  # lazy: import cycle
+
+    return load_pytree(path)
 
 
 def load_npz_params(path: str, cfg: ModelConfig, device="cpu"):
@@ -154,7 +178,10 @@ __all__ = [
     "load_npz_params",
     "load_npz_tree",
     "params_from_numpy",
+    "params_to_tree",
     "router_states_from_numpy",
+    "stack_blocks",
     "train_state_from_numpy",
+    "train_state_to_tree",
     "unstack_blocks",
 ]

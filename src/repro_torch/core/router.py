@@ -16,11 +16,22 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import balancers, ref_bip
 from repro_torch.core.types import RouterConfig, RouterOutput, init_router_state
 
 Tensor = torch.Tensor
+
+
+def gather_rows(table: Tensor, idx: Tensor) -> Tensor:
+    """table[idx] over the rows of a 2-D table, with a reproducible backward
+    on either device: on the CPU through F.embedding (the backward of
+    table[idx] adds with atomics in parallel there, so two runs differ in
+    the last bits), on the GPU as table[idx] (its backward is a sort-based
+    kernel, reproducible, with ~17 fewer launches per gather than
+    F.embedding's)."""
+    return F.embedding(idx, table) if table.device.type == "cpu" else table[idx]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +67,7 @@ class DispatchPlan:
         src_sorted = self.offsets[se] + slots % cap
         valid = src_sorted < self.offsets[se + 1]
         src_tok = self.order[torch.clamp_max(src_sorted, nk - 1)] // self.top_k
-        buf = x[src_tok] * valid[:, None].to(x.dtype)
+        buf = gather_rows(x, src_tok) * valid[:, None].to(x.dtype)
         return buf.reshape(m, cap, x.shape[-1])
 
     def combine(self, y: Tensor, weights: Tensor) -> Tensor:
@@ -66,7 +77,7 @@ class DispatchPlan:
         n, k = self.expert_index.shape
         ok = self.keep.reshape(-1)
         slot = (self.expert_index * cap + self.pos).reshape(-1)
-        g = y.reshape(m * cap, d)[torch.where(ok, slot, 0)]
+        g = gather_rows(y.reshape(m * cap, d), torch.where(ok, slot, 0))
         w = weights.reshape(-1, 1).to(y.dtype)
         contrib = torch.where(ok[:, None], g * w, torch.zeros((), dtype=y.dtype, device=y.device))
         return contrib.reshape(n, k, d).sum(dim=1)

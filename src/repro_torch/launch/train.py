@@ -1,20 +1,92 @@
 """Training launcher of the port: BIP-balanced (or another paper method's)
-training on the synthetic stream, on the GPU unless --device cpu.
+training on the synthetic stream or on a real-text corpus, on the GPU
+unless --device cpu.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch minimind-moe-16e \
         --steps 20 --batch 16 --seq-len 512 [--strategy bip|topk|aux_loss|lossfree]
 
+Real text (the reference's streaming pipeline, DESIGN.md §Data):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minimind-moe-16e \
+        --data tests/fixtures/corpus --pack-mode pack_nocross --micro 2 \
+        --ckpt-dir ck --ckpt-every 6 --steps 12 [--resume] [--guard skip]
+
+--data points at .jsonl ({"text": ...} per line) / .txt shards. The
+tokenizer at --tokenizer is loaded if present, otherwise trained on the
+corpus to the arch's vocab size and saved there (and copied into
+--ckpt-dir). One GPU is rank 0 of 1. The loader's cursor is checkpointed
+with the TrainState (the reference's npz format), and --resume continues
+bit-exactly on the CPU. --prefetch N (0 disables) copies batches to the
+GPU ahead of their step from pinned memory on a side stream.
+
 The expert FFN and the BIP dual update run in the CUDA kernels
 (use_kernel=True). It prints one line per --log-every steps and, last, the
 reference launcher's summary JSON (losses, AvgMaxVio/SupMaxVio, step
-times, test_ppl on 4 held-out batches).
+times, and test_ppl on 4 held-out synthetic batches or, with --data,
+train_corpus_ppl on 4 batches of the training corpus).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
+import os
+import shutil
 import sys
+
+_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1: training deferrals)"
+
+
+def _tokenizer(cfg, args, shards):
+    """Load --tokenizer when the file exists, else train one on the corpus
+    to cfg.vocab_size and save it there; a copy lands in --ckpt-dir."""
+    from repro_torch.data import ByteBPETokenizer, train_tokenizer_from_files
+
+    tok_path = args.tokenizer or (
+        os.path.join(args.ckpt_dir, "tokenizer.json") if args.ckpt_dir else None
+    )
+    if tok_path and os.path.exists(tok_path):
+        tokenizer = ByteBPETokenizer.load(tok_path)
+        print(f"tokenizer <- {tok_path} (vocab {tokenizer.vocab_size})")
+    else:
+        tokenizer = train_tokenizer_from_files(shards, vocab_size=cfg.vocab_size)
+        print(f"tokenizer trained on {len(shards)} shard(s): "
+              f"{len(tokenizer.merges)} merges, vocab {tokenizer.vocab_size}")
+        if tok_path:
+            tokenizer.save(tok_path)
+            print(f"tokenizer -> {tok_path}")
+    if tokenizer.vocab_size > cfg.vocab_size:
+        raise ValueError(f"tokenizer vocab {tokenizer.vocab_size} exceeds model vocab {cfg.vocab_size}")
+    if args.ckpt_dir and tok_path != os.path.join(args.ckpt_dir, "tokenizer.json"):
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+        dst = os.path.join(args.ckpt_dir, "tokenizer.json")
+        if tok_path:
+            shutil.copy(tok_path, dst)
+        else:
+            tokenizer.save(dst)
+    return tokenizer
+
+
+def _build_data_stream(cfg, args, device, faults=None):
+    """(BatchStream, tokenizer) for --data: loader (rank 0 of 1) -> fault
+    wrappers -> Prefetcher to `device`."""
+    from repro_torch.data import Prefetcher, ShardedTextLoader, resolve_shards
+
+    shards = resolve_shards(args.data)
+    tokenizer = _tokenizer(cfg, args, shards)
+    stream = ShardedTextLoader(
+        shards, tokenizer, batch_size=args.batch, seq_len=args.seq_len,
+        pack_mode=args.pack_mode, rank=0, world_size=1,
+        shuffle_buffer=args.shuffle_buffer, seed=args.data_seed,
+        io_retries=args.io_retries,
+        open_fn=faults.open_fn() if faults is not None else None,
+    )
+    if faults is not None:
+        stream = faults.wrap_stream(stream)  # flaky_stream / stall_prefetch
+    if args.prefetch > 0:
+        stream = Prefetcher(stream, depth=args.prefetch, device=device, retries=args.io_retries)
+    return stream, tokenizer
 
 
 def main(argv=None):
@@ -27,17 +99,67 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--micro", type=int, default=1,
+                    help="microbatches per step (gradient accumulation)")
     ap.add_argument("--reduced", action="store_true",
                     help="train the reduced (smoke-scale) variant of --arch")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out-json", default=None, help="write the run summary to this JSON file")
     ap.add_argument("--device", default="cuda", help="'cpu' runs without a GPU")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save the full TrainState every N steps (0 = only the final state)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest valid checkpoint in --ckpt-dir and continue")
+    # real-text data pipeline
+    ap.add_argument("--data", default=None,
+                    help="corpus dir / glob / file of .jsonl|.txt shards (default: synthetic stream)")
+    ap.add_argument("--tokenizer", default=None,
+                    help="tokenizer JSON path; trained on --data and saved here if missing "
+                         "(default: <ckpt-dir>/tokenizer.json)")
+    ap.add_argument("--pack-mode", default="pack", choices=["pack", "pack_nocross", "pad"],
+                    help="'pack' = EOS-joined stream, 'pack_nocross' adds within-document "
+                         "attention/loss masking, 'pad' = one document per sequence")
+    ap.add_argument("--shuffle-buffer", type=int, default=64,
+                    help="documents held in the loader's shuffle buffer")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="prefetch queue depth (0 = tokenize/pack/copy inline)")
+    ap.add_argument("--data-seed", type=int, default=0, help="loader shuffle seed")
+    # robustness
+    ap.add_argument("--guard", default=None, choices=["skip", "rollback", "raise"],
+                    help="anomaly policy for a non-finite loss/grad (skip -> LR drop -> "
+                         "rollback ladder, rollback, or raise)")
+    ap.add_argument("--spike-factor", type=float, default=0.0,
+                    help="loss-spike threshold as a multiple of the recent median "
+                         "(0 disables; implies --guard skip when no policy is given)")
+    ap.add_argument("--spike-window", type=int, default=8,
+                    help="finite losses in the spike reference window")
+    ap.add_argument("--inject", action="append", default=None, metavar="SPEC",
+                    help="fault injection, repeatable: 'nan_grad@step=3', "
+                         "'ckpt_corrupt@step=0,mode=bitflip', 'flaky_open@p=0.3', "
+                         "'flaky_stream@at=2'; see repro_torch.robustness.faults")
+    ap.add_argument("--io-retries", type=int, default=3,
+                    help="consecutive shard open/read failures retried before the loader raises")
+    # the reference's flags that the port refuses until they are ported
+    ap.add_argument("--telemetry", default=None, metavar="PATH", help=f"training telemetry {_NOT_PORTED}")
+    ap.add_argument("--profile", default=None, metavar="N:M", help=f"the profiler window {_NOT_PORTED}")
+    ap.add_argument("--guard-duals", action="store_true",
+                    help=f"the router-dual watchdog in training {_NOT_PORTED}")
+    ap.add_argument("--forecast", action="store_true",
+                    help=f"the bip forecaster windows {_NOT_PORTED}")
     args = ap.parse_args(argv)
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume requires --ckpt-dir")
+    if args.telemetry:
+        raise NotImplementedError(f"training telemetry (--telemetry) {_NOT_PORTED}")
+    if args.profile:
+        raise NotImplementedError(f"the profiler window (--profile) {_NOT_PORTED}")
 
     from repro_torch import configs, resolve_device
     from repro_torch.core import get_balancer
-    from repro_torch.data import SyntheticBatchStream, make_batches
+    from repro_torch.data import ShardedTextLoader, SyntheticBatchStream, make_batches, resolve_shards
     from repro_torch.models import Model
+    from repro_torch.robustness import FaultPlan, GuardConfig
     from repro_torch.training import evaluate_ppl, train_loop
 
     if args.strategy is not None:
@@ -52,29 +174,61 @@ def main(argv=None):
         strategy=args.strategy or cfg.routing.strategy,
         bip_iters=args.bip_iters or cfg.routing.bip_iters,
         use_kernel=True,
+        guard_duals=args.guard_duals or cfg.routing.guard_duals,
+        forecast=args.forecast or cfg.routing.forecast,
     )
     cfg = dataclasses.replace(cfg, routing=routing)
     model = Model(cfg, device=device)
     print(f"training {cfg.name} [{cfg.family}] method={cfg.routing.strategy} "
-          f"sync={cfg.routing.sync} device={device} data=synthetic")
-    batches = SyntheticBatchStream(cfg, args.batch, args.seq_len, args.steps, device=device)
+          f"sync={cfg.routing.sync} device={device} micro={args.micro} "
+          f"data={args.data or 'synthetic'}")
+    faults = None
+    if args.inject:
+        faults = FaultPlan.from_specs(args.inject)
+        print("injecting: " + "; ".join(f.describe() for f in faults.faults))
+    guard = None
+    if args.guard or args.spike_factor:
+        guard = GuardConfig(policy=args.guard or "skip", spike_factor=args.spike_factor,
+                            spike_window=args.spike_window)
+    if args.data:
+        batches, tokenizer = _build_data_stream(cfg, args, device, faults)
+    else:
+        batches = SyntheticBatchStream(cfg, args.batch, args.seq_len, args.steps, device=device)
+        if faults is not None:
+            batches = faults.wrap_stream(batches)
     state, log = train_loop(
-        model, batches, lr=args.lr, total_steps=args.steps, log_every=args.log_every
+        model, batches, lr=args.lr, total_steps=args.steps, log_every=args.log_every,
+        microbatches=args.micro, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every or (args.steps if args.ckpt_dir else 0),
+        resume=args.resume, guard=guard, faults=faults,
     )
-    test = make_batches(cfg, args.batch, args.seq_len, 4, split="test", device=device)
+    if args.data:
+        # no held-out split: the eval pass re-reads the training shards with
+        # another shuffle seed, so it is labelled train_corpus_ppl
+        test = itertools.islice(ShardedTextLoader(
+            resolve_shards(args.data), tokenizer, batch_size=args.batch, seq_len=args.seq_len,
+            pack_mode=args.pack_mode, seed=args.data_seed + 1, epochs=1,
+        ), 4)
+    else:
+        test = make_batches(cfg, args.batch, args.seq_len, 4, split="test", device=device)
     summary = {
         "arch": cfg.name,
         "method": cfg.routing.strategy,
         "sync": cfg.routing.sync,
         "device": str(device),
+        "microbatches": args.micro,
+        "data": args.data,
+        "pack_mode": args.pack_mode if args.data else None,
         "losses": log.losses,
         **log.summary(),
-        "test_ppl": evaluate_ppl(model, state, test),
+        ("train_corpus_ppl" if args.data else "test_ppl"): evaluate_ppl(model, state, test),
     }
     print(json.dumps(summary, indent=1, default=float))
     if args.out_json:
         with open(args.out_json, "w") as f:
             json.dump(summary, f, indent=1, default=float)
+    if args.ckpt_dir:
+        print(f"checkpoint -> {args.ckpt_dir}")
     return 0
 
 

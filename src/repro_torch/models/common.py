@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.router import gather_rows
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -127,10 +128,13 @@ def attention(
     cfg.attn_chunk (the query axis padded to a chunk multiple with position
     -1), each chunk against all keys with a causal (or sliding-window) mask,
     plain einsums and a masked fp32 softmax, so only one (B, H, chunk, S)
-    score block is formed per chunk. Segment-masked packing raises.
+    score block is formed per chunk.
+
+    `segments` (B, S) document ids restrict attention to seg_q == seg_k
+    (packed multi-document rows, data/packing.py 'pack_nocross'); padded
+    query rows take segment -2, which no key carries, and their fully
+    masked rows are zeroed by the softmax, not NaN.
     """
-    if segments is not None:
-        raise NotImplementedError("segment-masked packing (segments=) is not ported yet")
     b, s, _ = x.shape
     cd = cfg.compute_dtype
     if positions is None:
@@ -154,9 +158,12 @@ def attention(
     chunk = min(cfg.attn_chunk, s)
     pad = (-s) % chunk
     qpos = positions.expand(b, s)
+    segq = None if segments is None else segments.expand(b, s)
     if pad:  # pad the query axis up to a chunk multiple
         q = F.pad(q, (0, 0, 0, 0, 0, pad))
         qpos = F.pad(qpos, (0, pad), value=-1)
+        if segq is not None:  # padded query rows get a segment no key carries
+            segq = F.pad(segq, (0, pad), value=-2)
     ys = []
     for c0 in range(0, q.shape[1], chunk):
         qi, pi = q[:, c0:c0 + chunk], qpos[:, c0:c0 + chunk]
@@ -166,6 +173,9 @@ def attention(
             mask = (pi >= 0)[:, None, :, None] & torch.ones(
                 (1, 1, 1, s), dtype=torch.bool, device=x.device
             )
+        if segq is not None:
+            si = segq[:, c0:c0 + chunk]
+            mask = mask & (si[:, :, None] == segments[:, None, :])[:, None]
         ys.append(_attend(qi, k, v, mask, cfg.attn_logit_softcap, cd))
     y = torch.cat(ys, dim=1)[:, :s]
     return torch.einsum("bshk,hkd->bsd", y, params["wo"].to(cd))
@@ -312,7 +322,7 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def embed(params: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    return params["tok"].to(cfg.compute_dtype)[tokens]
+    return gather_rows(params["tok"].to(cfg.compute_dtype), tokens)
 
 
 def unembed(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:

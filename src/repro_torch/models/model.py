@@ -17,8 +17,9 @@ Parameters, router states and caches are per layer, in layer order (the
 reference scans stacked groups). The cache is updated in place: each step
 writes its K/V rows into the slot tensors instead of copying the cache.
 Attention-only decoder families run; cross-attention, mamba layers, the
-zamba2 shared block and the packed multi-request layout (`segments=`)
-raise NotImplementedError.
+zamba2 shared block and the packed multi-request prefill (`segments=` of
+`prefill_chunk`) raise NotImplementedError; packed training batches
+(`segments` in the batch of `forward`) run.
 """
 from __future__ import annotations
 
@@ -74,15 +75,17 @@ class Model:
     ) -> Tuple[Tensor, list, Tensor, Dict[str, Tensor]]:
         """Whole-sequence forward of batch['tokens'] (B, S) int64. Returns
         (logits (B, S, vocab) fp32, new router states, aux loss, metrics)
-        with the stack's '<key>_per_layer' columns."""
-        if batch.get("segments") is not None:
-            raise NotImplementedError("segment-masked packing (segments=) is not ported yet")
+        with the stack's '<key>_per_layer' columns. A packed real-text batch
+        carries batch['segments'] (B, S) document ids: attention then stays
+        within each document (routing does not: expert capacity is contested
+        across the whole batch, as in the reference)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = common.embed(params["embed"], tokens, cfg)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         x, new_states, aux, mets = stack.apply_stack(
-            params["stack"], x, router_states, cfg, positions=positions
+            params["stack"], x, router_states, cfg, positions=positions,
+            segments=batch.get("segments"),
         )
         x = common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
         logits = common.unembed(params["embed"], x, cfg)

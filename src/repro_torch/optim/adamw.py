@@ -8,11 +8,13 @@ to matrices (ndim >= 2) only.
 Unlike the reference, which returns new trees, `adamw_update` updates the
 params and moments IN PLACE under torch.no_grad() (one copy of the state
 lives on the device) and returns the same trees; `step` is a host integer.
+With `guard` (the guarded train step), every write selects the old value
+where the step is not ok, so a skipped step leaves the state bit-identical.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -43,9 +45,11 @@ def from_model_config(cfg, **overrides) -> AdamWConfig:
 
 
 def tree_leaves(tree) -> List[Tensor]:
-    """Tensor leaves of a dict/list tree in a fixed (insertion) order."""
+    """Tensor leaves of a dict/list tree in a fixed order: dict keys sorted,
+    as jax.tree.leaves, so a tree restored from a checkpoint (whose dicts
+    come back in sorted order) sums its global norm in the same order."""
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [] if tree is None else [tree]
@@ -78,14 +82,22 @@ def adamw_update(
     params,
     lr: float,
     cfg: AdamWConfig,
+    guard: Optional[Tensor] = None,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """One AdamW step, in place. `grads` are in the order of
     tree_leaves(params). Returns (params, opt_state, info) with info
-    {'grad_norm': device scalar, 'lr': lr}."""
+    {'grad_norm': device scalar, 'lr': lr}.
+
+    `guard` (a device bool scalar) makes the step conditional without a
+    host sync: ok = guard & isfinite(grad_norm), every param and moment
+    write is torch.where(ok, new, old), info gains 'step_ok' (ok) and
+    `step` is NOT advanced: the caller advances it once it has read ok."""
     step = opt_state["step"] + 1
     p_leaves = tree_leaves(params)
     mu_leaves, nu_leaves = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
     gnorm = global_norm(grads)
+    ok = None if guard is None else guard & torch.isfinite(gnorm)
+    keep = (lambda new, old: new) if ok is None else (lambda new, old: torch.where(ok, new, old))  # noqa: E731
     scale = None
     if cfg.clip_norm > 0:
         scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
@@ -102,8 +114,10 @@ def adamw_update(
         delta = (mu_n / c1) / (torch.sqrt(nu_n / c2) + cfg.eps)
         if p.dim() >= 2 and cfg.weight_decay > 0:  # decay matrices only
             delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        mu.copy_(mu_n)
-        nu.copy_(nu_n)
-    opt_state["step"] = step
-    return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+        p.copy_(keep(p.float() - lr * delta, p))
+        mu.copy_(keep(mu_n, mu))
+        nu.copy_(keep(nu_n, nu))
+    if ok is None:
+        opt_state["step"] = step
+        return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+    return params, opt_state, {"grad_norm": gnorm, "lr": lr, "step_ok": ok}

@@ -1,5 +1,9 @@
-"""Training harness of the port: TrainState, the train step, the host loop."""
+"""Training harness of the port: TrainState, the (microbatched, guarded)
+train step, the checkpointed host loop, test perplexity."""
 from repro_torch.training.loop import (
+    CTRL_FORCE_SKIP,
+    CTRL_INJECT_NAN,
+    CTRL_LR_SCALE,
     TrainLog,
     TrainState,
     evaluate_ppl,
@@ -9,6 +13,9 @@ from repro_torch.training.loop import (
 )
 
 __all__ = [
+    "CTRL_FORCE_SKIP",
+    "CTRL_INJECT_NAN",
+    "CTRL_LR_SCALE",
     "TrainLog",
     "TrainState",
     "evaluate_ppl",

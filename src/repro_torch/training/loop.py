@@ -1,5 +1,6 @@
-"""Training harness of the port (single device): TrainState, the train step,
-the host loop and test perplexity (port of src/repro/training/loop.py).
+"""Training harness of the port (single device): TrainState, the train step
+(microbatched and guarded), the checkpointed host loop and test perplexity
+(port of src/repro/training/loop.py).
 
 The step threads three trees: params, the AdamW state and the per-MoE-layer
 router states (the BIP dual q / Loss-Free bias), exactly as the reference:
@@ -8,16 +9,38 @@ and the router states the forward returned carry to the next step. Master
 params and Adam moments stay fp32; the model casts each weight to the
 compute dtype at its use site, so gradients arrive in fp32.
 
-Differences from the reference, by design of an eager port:
-  * the AdamW update is in place (params and moments are updated under
-    torch.no_grad(); there is no donation to ask for);
-  * microbatching (gradient accumulation) and the guarded step are not
-    ported yet: `make_train_step` raises for them (ROADMAP.md, queue 1);
-  * `train_loop` has no checkpoints, guard ladder or telemetry.
+* **Gradient accumulation** - `microbatches=k` splits the batch's rows
+  into k consecutive microbatches and runs forward/backward on each in
+  turn; the router states thread through them sequentially (the BIP dual
+  q updates between microbatches), gradients sum in the param dtype and
+  are divided by k, and the metrics reduce as the reference's
+  `_reduce_micro_mets`.
+* **The guarded step** - `guarded=True` makes the step
+  train_step(state, batch, controls) with the reference's (3,) controls
+  (CTRL_*): ok = isfinite(loss) & isfinite(grad_norm) & ~force_skip is
+  formed on the device before any write, every write (params, both
+  moments, the router states) is torch.where(ok, new, old), and the host
+  advances the optimizer's step only after reading ok at the end of the
+  step (the loop reads the loss there anyway). A skipped step leaves the
+  state bit-identical.
+* **Checkpoints** - `train_loop(ckpt_dir=, ckpt_every=, resume=,
+  async_ckpt=)` saves the full TrainState through `checkpoint.store` in the
+  reference's npz layout, with the data stream's cursor beside it, and
+  resumes bit-exactly on the CPU.
+
+Differences from the reference, by design of an eager port: the AdamW
+update is in place (params and moments are updated under torch.no_grad();
+there is no donation to ask for), and the step's controls are host values.
+Not ported yet (ROADMAP.md, queue 1): training telemetry, the profiler
+window, the router-dual watchdog in training (`routing.guard_duals`), the
+bip forecaster windows (`routing.forecast`) and everything on a mesh;
+`make_train_step` refuses the two routing flags.
 """
 from __future__ import annotations
 
 import dataclasses
+import signal
+import threading
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -25,11 +48,19 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import BalanceTracker
+from repro_torch.data.prefetch import batch_to_torch
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw as _adamw
 from repro_torch.optim.schedules import linear_warmup_cosine
+from repro_torch.robustness.guards import ROLLBACK, GuardConfig, TrainGuard, TrainingDiverged
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1: training slice deferrals)"
+_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1: training deferrals)"
+
+# control-vector layout of the guarded train step (the reference's): a (3,)
+# float vector of per-step scalars the host sets
+CTRL_INJECT_NAN = 0  # > 0: fault injection - scale the loss (hence grads) by NaN
+CTRL_FORCE_SKIP = 1  # > 0: keep the pre-step state (planned skip / replay)
+CTRL_LR_SCALE = 2    # multiplier on the scheduled LR (guard's reduce-LR ladder)
 
 
 @dataclasses.dataclass
@@ -48,6 +79,47 @@ def init_train_state(model: Model, seed: int, opt_cfg: _adamw.AdamWConfig) -> Tr
     )
 
 
+def _split_micro(batch: Dict[str, torch.Tensor], k: int) -> List[Dict[str, torch.Tensor]]:
+    """Rows [i*B/k, (i+1)*B/k) of every batch entry, i < k (the reference's
+    reshape to (k, B/k, ...))."""
+    b = next(iter(batch.values())).shape[0]
+    if b % k:
+        raise ValueError(f"a batch of {b} rows does not split into {k} microbatches")
+    n = b // k
+    return [{key: v[i * n:(i + 1) * n] for key, v in batch.items()} for i in range(k)]
+
+
+def _reduce_micro_mets(mets: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Per-microbatch metrics -> per-step values, as the reference: MaxVio
+    by max (the worst microbatch), dispatch counts by sum (integer), the
+    dual |q| and forecaster error by the last microbatch (the carried state
+    after the step), scalars by mean; perplexity recomputed from the mean
+    CE, so it stays exp(mean nll)."""
+    out = {}
+    for name in mets[0]:
+        v = torch.stack([m[name] for m in mets])
+        if name == "max_vio_per_layer":
+            out[name] = v.max(dim=0).values
+        elif name == "load_per_layer":
+            out[name] = v.sum(dim=0)
+        elif name in ("q_abs_max_per_layer", "forecast_err_per_layer"):
+            out[name] = v[-1]
+        elif name != "perplexity":
+            out[name] = (v if v.is_floating_point() else v.float()).mean(dim=0)
+    if "ce_loss" in out:
+        out["perplexity"] = torch.exp(out["ce_loss"])
+    return out
+
+
+def _select(ok: torch.Tensor, new, old):
+    """torch.where(ok, new, old) over two same-structured trees."""
+    if isinstance(new, dict):
+        return {k: _select(ok, new[k], old[k]) for k in new}
+    if isinstance(new, (list, tuple)):
+        return [_select(ok, a, b) for a, b in zip(new, old)]
+    return None if new is None else torch.where(ok, new, old)
+
+
 def make_train_step(
     model: Model,
     opt_cfg: _adamw.AdamWConfig,
@@ -56,39 +128,92 @@ def make_train_step(
     microbatches: int = 1,
     guarded: bool = False,
 ):
-    """Returns train_step(state, batch) -> (state, metrics).
+    """Returns train_step(state, batch) -> (state, metrics), or with
+    `guarded=True` train_step(state, batch, controls) (see CTRL_*).
 
     The step updates `state` in place and returns it; metrics stay on the
-    device ('loss', 'ce_loss', 'aux_loss', 'perplexity', 'grad_norm', 'lr'
-    and the stack's '<key>_per_layer' columns), so the step itself never
-    waits for the device.
-    """
-    if microbatches > 1:
-        raise NotImplementedError(f"microbatches > 1 (gradient accumulation) {_NOT_PORTED}")
-    if guarded:
-        raise NotImplementedError(f"the guarded train step {_NOT_PORTED}")
+    device ('loss', 'ce_loss', 'aux_loss', 'perplexity', 'grad_norm', 'lr',
+    the stack's '<key>_per_layer' columns and, guarded, 'step_ok'). The
+    unguarded step never waits for the device; the guarded one reads
+    'step_ok' once, after every launch of the step is issued. With
+    microbatches=k the batch's rows must divide by k (ValueError)."""
+    routing = model.cfg.routing
+    if routing.guard_duals:
+        raise NotImplementedError(f"the router-dual watchdog in training (--guard-duals) {_NOT_PORTED}")
+    if routing.forecast:
+        raise NotImplementedError(f"the bip forecaster windows (--forecast) {_NOT_PORTED}")
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+    def fwd_bwd(params, leaves, batch, router, inject_nan):
+        loss, (router, mets) = model.loss_fn(params, batch, router)
+        if inject_nan:
+            # fault seam (robustness/faults.NanGrad): grads = NaN * dL
+            loss = loss * float("nan")
+        grads = torch.autograd.grad(loss, leaves)
+        mets = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in mets.items()}
+        mets["loss"] = loss.detach()
+        return grads, router, mets
+
+    def run(state: TrainState, batch, controls):
+        inject, force_skip, lr_scale = (False, False, 1.0) if controls is None else (
+            float(controls[CTRL_INJECT_NAN]) > 0,
+            float(controls[CTRL_FORCE_SKIP]) > 0,
+            float(controls[CTRL_LR_SCALE]),
+        )
         leaves = _adamw.tree_leaves(state.params)
         for p in leaves:
             p.requires_grad_(True)
-        loss, (new_router, mets) = model.loss_fn(state.params, batch, state.router_states)
-        grads = torch.autograd.grad(loss, leaves)
+        if microbatches == 1:
+            grads, new_router, mets = fwd_bwd(state.params, leaves, batch, state.router_states, inject)
+        else:
+            router, acc, per_mb = state.router_states, None, []
+            for mb in _split_micro(batch, microbatches):
+                grads, router, mets = fwd_bwd(state.params, leaves, mb, router, inject)
+                if acc is None:  # accumulate in the param dtype, as the reference
+                    acc = [g.to(p.dtype) for g, p in zip(grads, leaves)]
+                else:
+                    for a, g in zip(acc, grads):
+                        a.add_(g.to(a.dtype))
+                per_mb.append(mets)
+            grads = [a / microbatches for a in acc]
+            new_router, mets = router, _reduce_micro_mets(per_mb)
         lr = lr_fn(state.opt_state["step"])
-        _, _, info = _adamw.adamw_update(list(grads), state.opt_state, state.params, lr, opt_cfg)
-        state.router_states = new_router
-        mets = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in mets.items()}
-        mets["loss"] = loss.detach()
+        if controls is not None:
+            lr = lr * lr_scale
+        guard = None
+        if controls is not None:
+            guard = torch.isfinite(mets["loss"]) & (not force_skip)
+        _, _, info = _adamw.adamw_update(list(grads), state.opt_state, state.params, lr, opt_cfg,
+                                         guard=guard)
         mets.update(info)
+        if controls is None:
+            state.router_states = new_router
+            return state, mets
+        ok = info["step_ok"]
+        with torch.no_grad():
+            state.router_states = _select(ok, new_router, state.router_states)
+        if bool(ok):  # the step's one host read, after all of its launches
+            state.opt_state["step"] += 1
         return state, mets
 
-    return train_step
+    if not guarded:
+        def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+            return run(state, batch, None)
+
+        return train_step
+
+    def guarded_step(state: TrainState, batch: Dict[str, torch.Tensor], controls):
+        return run(state, batch, controls)
+
+    return guarded_step
 
 
 class TrainLog:
     """Host-side record of one run, with the paper's balance metrics: per
     step CE loss, perplexity, wall time and per-layer MaxVio, accumulated
-    into per-layer and model-level AvgMaxVio / SupMaxVio."""
+    into per-layer and model-level AvgMaxVio / SupMaxVio; `events` holds
+    the guard ladder's and the loop's events."""
 
     def __init__(self) -> None:
         self.losses: List[float] = []
@@ -97,9 +222,19 @@ class TrainLog:
         self.max_vio_steps: List[np.ndarray] = []
         self.per_layer: List[BalanceTracker] = []
         self.model_tracker = BalanceTracker()
+        self.events: List[Dict[str, Any]] = []
+        self.checkpoints: List[Dict[str, Any]] = []  # CheckpointManager.saves of the run
 
     def __len__(self) -> int:
         return len(self.losses)
+
+    def _track(self, vios: np.ndarray) -> None:
+        if not self.per_layer:
+            self.per_layer = [BalanceTracker() for _ in range(vios.size)]
+        for t, v in zip(self.per_layer, vios):
+            t.add(float(v))
+        # model-level MaxVio for the batch = max over layers (conservative)
+        self.model_tracker.add(float(vios.max()))
 
     def record(self, mets: Dict[str, Any], dt: float) -> None:
         self.losses.append(float(mets["ce_loss"]))
@@ -109,12 +244,18 @@ class TrainLog:
         vios = np.zeros(0) if vios is None else np.asarray(torch.as_tensor(vios).cpu(), np.float64)
         if vios.size:
             self.max_vio_steps.append(vios)
-            if not self.per_layer:
-                self.per_layer = [BalanceTracker() for _ in range(vios.size)]
-            for t, v in zip(self.per_layer, vios):
-                t.add(float(v))
-            # model-level MaxVio for the batch = max over layers (conservative)
-            self.model_tracker.add(float(vios.max()))
+            self._track(vios)
+
+    def truncate(self, n: int) -> None:
+        """Drop the records past the first `n` steps and rebuild the balance
+        trackers from the rest: a rollback rewinds the log, so replayed
+        steps are not counted twice in AvgMaxVio/SupMaxVio."""
+        n = max(0, n)
+        del self.losses[n:], self.perplexities[n:], self.step_times[n:], self.max_vio_steps[n:]
+        self.per_layer = []
+        self.model_tracker = BalanceTracker()
+        for vios in self.max_vio_steps:
+            self._track(vios)
 
     def summary(self) -> Dict[str, Any]:
         times = self.step_times
@@ -135,12 +276,14 @@ class TrainLog:
             out["step_time_p99"] = float(np.percentile(steady, 99))
         if self.per_layer:
             out["AvgMaxVio_per_layer"] = [t.avg_max_vio for t in self.per_layer]
+        if self.events:
+            out["guard_events"] = list(self.events)
         return out
 
 
 def train_loop(
     model: Model,
-    batches: Iterable[Dict[str, torch.Tensor]],
+    batches: Iterable[Dict[str, Any]],
     *,
     seed: int = 0,
     lr: float = 3e-4,
@@ -148,32 +291,171 @@ def train_loop(
     total_steps: int = 200,
     log_every: int = 0,
     state: Optional[TrainState] = None,
+    microbatches: int = 1,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 0,
+    resume: bool = False,
+    async_ckpt: bool = True,
+    guard=None,
+    faults=None,
 ) -> Tuple[TrainState, TrainLog]:
-    """Host loop on one device: the reference's schedule wiring (AdamW
-    from the model config, linear warmup then cosine to 10% of `lr`),
-    stopping at `total_steps` even for an endless stream. Each step's wall
-    time is taken around work that ends in reading the loss, so it covers
-    the device work of the step."""
+    """Host loop on one device: the reference's schedule wiring (AdamW from
+    the model config, linear warmup then cosine to 10% of `lr`), stopping
+    at `total_steps` even for an endless stream (it never pulls a batch it
+    will not train on). Each step's wall time is taken around work that
+    ends in reading the loss, so it covers the device work of the step.
+    Batches may hold numpy arrays (the text loader's) or tensors; they go
+    to the model's device as int64.
+
+    `batches` with state_dict/load_state_dict (`data.ShardedTextLoader`,
+    `data.SyntheticBatchStream`, a `data.Prefetcher` around either) has its
+    cursor checkpointed beside the TrainState, and `resume=True` seeks it
+    in O(1); a plain iterable is replay-skipped past the restored steps.
+
+    * `ckpt_dir` / `ckpt_every`: save every N steps (and the final state
+      off a boundary) through `checkpoint.CheckpointManager`, asynchronously
+      unless `async_ckpt=False` (an on-device snapshot, then a writer
+      thread; checkpoints are durable when the loop returns).
+    * `resume=True` restores the newest VALID checkpoint under `ckpt_dir`
+      (corrupt ones are skipped with a warning) and continues.
+    * `guard` (a `robustness.GuardConfig`) runs the guarded step and the
+      host's skip -> reduce-LR -> rollback ladder; a rollback restores the
+      newest valid checkpoint, rewinds the stream, truncates the log and
+      replays with the bad step force-skipped (bit-identical to skipping it
+      in place). Rollback needs a checkpoint directory, `ckpt_every` and a
+      rewindable stream; without them the ladder raises TrainingDiverged.
+    * `faults` (a `robustness.FaultPlan`) drives the injection seams: the
+      NaN into the guarded step, corruption after a save.
+    * SIGTERM (installed on the main thread when checkpointing) writes one
+      final SYNCHRONOUS checkpoint and returns; the handler is restored on
+      exit.
+    """
     opt_cfg = _adamw.from_model_config(model.cfg)
+    # the step is built before any data is read: it refuses what is not ported
+    guarded = guard is not None or (faults is not None and faults.get("nan_grad") is not None)
+    step_fn = make_train_step(model, opt_cfg, linear_warmup_cosine(lr, warmup_steps, total_steps),
+                              microbatches=microbatches, guarded=guarded)
+
+    manager = None
+    if ckpt_dir is not None:
+        from repro_torch.checkpoint import CheckpointManager
+
+        manager = CheckpointManager(ckpt_dir)
+
+    is_stream = hasattr(batches, "state_dict") and hasattr(batches, "load_state_dict")
+    start_step = 0
+    data_state = None
+    if resume and manager is not None and state is None:
+        from repro_torch.checkpoint import latest_step
+
+        if latest_step(ckpt_dir) is not None:
+            start_step, state = manager.restore_train_state(model.cfg, device=model.device)
+            data_state = manager.restore_data_state(start_step)
     if state is None:
         state = init_train_state(model, seed, opt_cfg)
-    step_fn = make_train_step(model, opt_cfg, linear_warmup_cosine(lr, warmup_steps, total_steps))
+
+    loop_start = 0  # the step index the loop starts at
+    if is_stream and data_state is not None:
+        batches.load_state_dict(data_state)  # O(1) seek past the consumed prefix
+        loop_start = start_step
+
+    tguard = None
+    if guarded:
+        tguard = TrainGuard(
+            guard if guard is not None else GuardConfig(),
+            can_rollback=manager is not None and is_stream and ckpt_every > 0,
+        )
+
+    # preemption: SIGTERM asks for one final synchronous checkpoint; signal
+    # handlers can only be installed on the main thread
+    sig_flag = {"term": False}
+    prev_handler = None
+    hook_signal = manager is not None and threading.current_thread() is threading.main_thread()
+    if hook_signal:
+        prev_handler = signal.getsignal(signal.SIGTERM)
+        signal.signal(signal.SIGTERM, lambda *_: sig_flag.update(term=True))
+
     log = TrainLog()
-    it = iter(batches)
-    i = -1
-    while not total_steps or i + 1 < total_steps:  # never pull a batch it won't train on
-        batch = next(it, None)
-        if batch is None:
-            break
-        i += 1
-        t0 = time.perf_counter()
-        state, mets = step_fn(state, batch)
-        float(mets["loss"])  # wait for the step's device work
-        dt = time.perf_counter() - t0
-        log.record(mets, dt)
-        if log_every and i % log_every == 0:
-            vio = f" maxvio {log.max_vio_steps[-1].max():.3f}" if log.max_vio_steps else ""
-            print(f"step {i:5d} loss {log.losses[-1]:.4f} ppl {log.perplexities[-1]:.2f}{vio}")
+    saved_at = -1
+
+    def save(block: bool) -> None:
+        path = manager.save_train_state(
+            state, model.cfg, data_state=batches.state_dict() if is_stream else None, block=block
+        )
+        if faults is not None and faults.get("ckpt_corrupt") is not None:
+            manager.wait()  # the file must be fully written before corrupting
+            if faults.corrupt_after_save(path):
+                log.events.append({"step": i, "kind": "ckpt_corrupted", "path": path})
+
+    try:
+        it = iter(batches)
+        i = loop_start - 1
+        while True:
+            # bound infinite streams BEFORE pulling: the stream's cursor must
+            # stay in step with the step count
+            if total_steps and i + 1 >= total_steps:
+                break
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            i += 1
+            if i < start_step:
+                continue  # resumed plain iterable: replay-skip the consumed prefix
+            batch = batch_to_torch(batch, model.device)
+            t0 = time.perf_counter()
+            if guarded:
+                force_skip, lr_scale = tguard.controls(i)
+                inject = faults is not None and faults.nan_fires(i)
+                state, mets = step_fn(state, batch, (float(inject), float(force_skip), lr_scale))
+            else:
+                state, mets = step_fn(state, batch)
+            loss = float(mets["loss"])  # wait for the step's device work
+            dt = time.perf_counter() - t0
+            if guarded:
+                action = tguard.observe(i, loss, bool(mets["step_ok"]))  # raises on RAISE
+                log.events = tguard.events
+                if action == ROLLBACK:
+                    r_step, state = manager.restore_train_state(model.cfg, device=model.device)
+                    ds = manager.restore_data_state(r_step)
+                    if ds is None:
+                        raise TrainingDiverged(
+                            f"rollback to step {r_step}: checkpoint has no data cursor "
+                            f"to rewind the stream with"
+                        )
+                    if hasattr(batches, "close"):
+                        batches.close()  # a Prefetcher must re-arm after the rewind
+                    batches.load_state_dict(ds)
+                    it = iter(batches)
+                    log.truncate(r_step - loop_start)
+                    log.events = tguard.events
+                    start_step = 0  # a fallback restore may predate `resume`
+                    i = r_step - 1
+                    if log_every:
+                        print(f"rollback -> step {r_step} (replaying)")
+                    continue
+            log.record(mets, dt)
+            if log_every and i % log_every == 0:
+                vio = f" maxvio {log.max_vio_steps[-1].max():.3f}" if log.max_vio_steps else ""
+                print(f"step {i:5d} loss {log.losses[-1]:.4f} ppl {log.perplexities[-1]:.2f}{vio}")
+            if manager is not None and ckpt_every and (i + 1) % ckpt_every == 0:
+                save(block=not async_ckpt)
+                saved_at = i
+            if sig_flag["term"]:
+                save(block=True)  # preemption: make the state durable NOW
+                saved_at = i
+                log.events.append({"step": i, "kind": "sigterm_checkpoint"})
+                break
+        if manager is not None and ckpt_every and saved_at != i:
+            save(block=not async_ckpt)  # final state, off-boundary stop
+    finally:
+        if hook_signal:
+            signal.signal(signal.SIGTERM, prev_handler)
+        if manager is not None:
+            manager.wait()  # checkpoints durable before the loop returns
+        if hasattr(batches, "close"):
+            batches.close()  # stop a Prefetcher's producer on early break
+    log.checkpoints = manager.saves if manager is not None else []
     return state, log
 
 
@@ -184,6 +466,7 @@ def evaluate_ppl(model: Model, state: TrainState, batches) -> float:
     weighted by each batch's count of valid labels."""
     ces, ns = [], []
     for batch in batches:
+        batch = batch_to_torch(batch, model.device)
         _, (_, mets) = model.loss_fn(state.params, batch, state.router_states)
         ces.append(float(mets["ce_loss"]))
         ns.append(int((batch["labels"] >= 0).sum()))

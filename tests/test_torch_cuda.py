@@ -1,5 +1,6 @@
 """The port on the GPU: the CUDA kernels against their plain versions, the
-serving engine and the train step launching them. Needs an NVIDIA GPU and
+serving engine and the train step launching them, the prefetcher's copies
+to the card and the checkpoint's on-device snapshot. Needs an NVIDIA GPU and
 nvcc; skips elsewhere. Imports no JAX, so it runs where only the port is
 installed:
 
@@ -8,6 +9,8 @@ installed:
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import os
 import threading
 
 import numpy as np
@@ -339,3 +342,112 @@ def test_train_steps_launch_the_kernels(cuda_device):
     assert bip_admm.bip_admm_iteration.launches == 0
     assert all(np.isfinite(losses))
     assert float(mets["max_vio_per_layer"].max()) < 1.0
+
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "corpus")
+
+
+def _reduced_kernel_cfg():
+    full = configs.get("minimind_moe_16e")
+    routing = dataclasses.replace(full.routing, use_kernel=True)
+    return configs.reduced_for_smoke("minimind_moe_16e", routing=routing, vocab_size=512)
+
+
+def test_prefetcher_copies_pinned_batches_on_a_side_stream(cuda_device):
+    """The batches arrive on the card as int64, equal to the loader's; the
+    producer stages them in pinned memory and copies them on its own
+    stream; the cursor counts consumed batches only."""
+    from repro_torch.data import Prefetcher, ShardedTextLoader, resolve_shards, train_tokenizer_from_files
+
+    shards = resolve_shards(FIXTURE)
+    tok = train_tokenizer_from_files(shards, vocab_size=512)
+
+    def loader():
+        return ShardedTextLoader(shards, tok, batch_size=4, seq_len=64, pack_mode="pack_nocross", seed=1)
+
+    raw = list(itertools.islice(iter(loader()), 6))
+    pf = Prefetcher(loader(), depth=2, device=cuda_device)
+    got = []
+    for i, batch in enumerate(iter(pf)):
+        assert all(t.is_cuda and t.dtype == torch.int64 for t in batch.values())
+        got.append({k: (t + 0).cpu() for k, t in batch.items()})  # read on the compute stream
+        if i == 2:
+            snap = pf.state_dict()
+        if i == 5:
+            break
+    pf.close()
+    for a, b in zip(raw, got):
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_array_equal(b[k].numpy(), a[k])
+    resumed = loader()
+    resumed.load_state_dict(snap)
+    np.testing.assert_array_equal(next(iter(resumed))["tokens"], raw[3]["tokens"])
+    side = torch.cuda.Stream(cuda_device)
+    dev, ready, pinned = pf._to_device(raw[0], side)
+    assert all(t.is_pinned() for t in pinned.values())
+    torch.cuda.current_stream().wait_event(ready)
+    np.testing.assert_array_equal(dev["labels"].cpu().numpy(), raw[0]["labels"])
+
+
+def test_async_checkpoint_snapshot_is_taken_before_the_in_place_step(cuda_device, tmp_path):
+    """An async save returns after its on-device snapshot; the in-place
+    AdamW step issued right after must not reach the file, which equals a
+    blocking save of the same state and restores onto the card bit-equal
+    to the state before that step."""
+    from repro_torch.checkpoint import CheckpointManager, load_pytree
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = _reduced_kernel_cfg()
+    model = Model(cfg)
+    opt = from_model_config(cfg)
+    step = make_train_step(model, opt, constant(1e-3))
+    b0, b1 = make_batches(cfg, 4, 64, 2, device=cuda_device)
+    state, _ = step(init_train_state(model, 0, opt), b0)
+
+    def leaves(st):
+        return tree_leaves([st.params, st.opt_state["mu"], st.opt_state["nu"], st.router_states])
+
+    before = [t.detach().clone() for t in leaves(state)]
+    blocking = CheckpointManager(str(tmp_path / "b")).save_train_state(state, cfg)
+    mgr = CheckpointManager(str(tmp_path / "a"))
+    path = mgr.save_train_state(state, cfg, block=False)
+    state, _ = step(state, b1)  # overwrites params and moments in place
+    mgr.wait()
+    a, b = load_pytree(path, verify=True), load_pytree(blocking, verify=True)
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert torch.equal(x, y)
+    rec = mgr.saves[-1]
+    assert rec["snapshot_ms"] > 0 and rec["bytes"] == os.path.getsize(path)
+    n, back = mgr.restore_train_state(cfg, device=cuda_device)
+    assert n == 1 and back.opt_state["step"] == 1
+    for x, y in zip(leaves(back), before):
+        assert x.is_cuda and torch.equal(x, y)
+
+
+def test_guarded_microbatched_step_on_the_card(cuda_device):
+    """Two microbatches launch every kernel twice per MoE layer; a NaN step
+    keeps params, moments, the step and q bit-identical."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = _reduced_kernel_cfg()
+    model = Model(cfg)
+    opt = from_model_config(cfg)
+    step = make_train_step(model, opt, constant(1e-3), microbatches=2, guarded=True)
+    b0, b1 = make_batches(cfg, 4, 64, 2, device=cuda_device)
+    moe_gemm.reset_launch_counts()
+    bip_admm.reset_launch_counts()
+    state, mets = step(init_train_state(model, 0, opt), b0, (0.0, 0.0, 1.0))
+    assert bool(mets["step_ok"]) and state.opt_state["step"] == 1
+    n_moe = cfg.n_layers
+    assert moe_gemm.grouped_gated_ffn_in.launches == 2 * n_moe
+    assert moe_gemm.grouped_matmul.launches == 2 * 9 * n_moe
+    assert bip_admm.bip_dual_update.launches == 2 * n_moe
+    def leaves(st):
+        return tree_leaves([st.params, st.opt_state["mu"], st.opt_state["nu"], st.router_states])
+
+    before = [t.detach().clone() for t in leaves(state)]
+    state, mets = step(state, b1, (1.0, 0.0, 1.0))
+    assert not bool(mets["step_ok"]) and state.opt_state["step"] == 1
+    after = leaves(state)
+    assert len(after) == len(before) and all(torch.equal(x, y) for x, y in zip(after, before))

@@ -149,6 +149,10 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    subpackages = {f.parent.name for f in files}
+    assert {"data", "checkpoint", "robustness", "training", "kernels"} <= subpackages
+    for name in ("tokenizer", "packing", "loader", "prefetch", "store", "guards", "faults"):
+        assert any(f.stem == name for f in files), name
     bad = []
     for f in files:
         for mod in _imported_modules(f):
