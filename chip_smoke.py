@@ -73,6 +73,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      the 'skip' policy: params, moments, step and q after step 2 bit-equal
      to those before it, and the guarded step p50 against the unguarded
      one. The temporary directory is removed.
+ 12. the balance matrix at full width, through launch/balance_sweep.run_method:
+     minimind-moe-16e and 64e on the synthetic stream (batch 16 x 512), every
+     registered method (bip, lossfree, aux_loss, topk, phi, lpr,
+     expert_choice; use_kernel=True) plus bip under sync='global' on the
+     plain bisection dual (K3 off, K1/K2 on), 12 steps per cell, each model
+     freed before the next; then minimind-moe-16e on tests/fixtures/corpus
+     (pack_nocross 16 x 512, two microbatches) with the paper's four. Per
+     cell: AvgMaxVio, SupMaxVio, step-0 MaxVio, final ppl, steady p50/p99 and
+     K1/K2/K3 launches per step; asserted: the launches (8 / 72 per step at
+     one microbatch, 16 / 144 at two; K3 8 or 16 for bip on the kernel, 0
+     otherwise), finite losses, a last loss below the first, expert_choice's
+     MaxVio 0, and bip's AvgMaxVio <= 1.0 and below topk's in every group.
+     The rest of the paper's ordering is printed as PASS/FAIL lines, not
+     asserted. The paper's four on 16e synthetic run a second time in
+     reverse order, and each method's p50 per pass is printed; bip's time
+     against aux_loss is called resolved only when both passes agree in
+     sign and the mean saving exceeds the largest pass-to-pass change of
+     any one method's p50. Last,
+     one gate on skewed scores on CUDA tensors (bip with and without K3 and
+     every other method) beside the LP optimum solved on the host.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
 that outlives it (nvcc and nvidia-smi run to completion).
@@ -106,6 +126,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 512, 20
 REAL_STEPS, REAL_MICRO, REAL_CKPT_EVERY = 12, 2, 6
 CORPUS = ROOT / "tests" / "fixtures" / "corpus"
 TRAIN64_STEPS = 5
+# phase 12: the balance matrix, every registered method, 12 steps per cell
+MATRIX_STEPS = 12
+PAPER_FOUR = ("bip", "lossfree", "aux_loss", "topk")
+ALL_SEVEN = PAPER_FOUR + ("phi", "lpr", "expert_choice")
 K3_CASES = ((8192, 16, 4), (1000, 64, 8), (8191, 16, 4))  # (n, m, k); 8191: ragged
 # (n, m, k, T) of the fused dual update: 16e's training shape, a ragged n,
 # 64e's (T = 14), a short m = 64 one, arctic's m = 128, a k past the
@@ -860,6 +884,116 @@ def train_real_text(torch, tcfg, mods, synthetic_p50):
         print(f"  removed the temporary checkpoint directory: {not os.path.exists(tmp)}")
 
 
+def balance_cell(torch, run_method, cfg, label, method, micro=1, **kw):
+    """One phase-12 cell through balance_sweep.run_method at full width
+    (batch TRAIN_BATCH x TRAIN_SEQ): prints its balance, perplexity, step
+    times and launches per step; asserts the launches (K1 once, K2 nine
+    times per MoE layer and microbatch; K3 once per MoE layer and
+    microbatch where bip runs its dual on the kernel, else never), finite
+    losses, a last loss below the first, and for expert_choice MaxVio 0.
+    Returns the record."""
+    rec = run_method(cfg, method, MATRIX_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                     microbatches=micro, device="cuda", **kw)
+    n_moe = sum(ffn == "moe" for _, ffn in cfg.layer_kinds())
+    k3 = method == "bip" and rec["use_kernel"]
+    want = {"K1": micro * n_moe, "K2": micro * n_moe * 9, "K3": micro * n_moe if k3 else 0}
+    per_step = {k: v / MATRIX_STEPS for k, v in rec["launches"].items()}
+    losses = rec["loss_per_step"]
+    print(f"  {label:<28} AvgMaxVio {rec['AvgMaxVio']:.4f} SupMaxVio {rec['SupMaxVio']:.4f} "
+          f"step0 MaxVio {rec['first_step_max_vio']:.4f} ppl {rec['final_ppl']:.2f} "
+          f"loss {losses[0]:.4f}->{losses[-1]:.4f} p50 {1e3 * rec['step_time_p50']:.2f} ms "
+          f"p99 {1e3 * rec['step_time_p99']:.2f} ms launches/step K1 {per_step['K1']:g} "
+          f"K2 {per_step['K2']:g} K3 {per_step['K3']:g}", flush=True)
+    for name, n in want.items():
+        if rec["launches"][name] != n * MATRIX_STEPS:
+            raise AssertionError(f"{label}: {name} launched {rec['launches'][name]} times in "
+                                 f"{MATRIX_STEPS} steps, expected {n * MATRIX_STEPS}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: a non-finite loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    if method == "expert_choice" and rec["SupMaxVio"] != 0.0:
+        raise AssertionError(f"{label}: expert-choice MaxVio {rec['SupMaxVio']} != 0")
+    return rec
+
+
+def balance_matrix(torch, configs, balance_sweep, paper_repro):
+    """Phase 12 (see the module doc). Returns the launches of the phase by
+    kernel and group: {'16e': ..., '16e-micro': ..., '64e': ...}."""
+    run = balance_sweep.run_method
+    launches = {}
+    groups = {}
+    t_phase = time.perf_counter()
+    for arch, tag in (("minimind_moe_16e", "16e"), ("minimind_moe_64e", "64e")):
+        cfg = configs.get(arch)
+        r = cfg.routing
+        print(f"[balance] {cfg.name} full width ({r.n_experts} experts top-{r.top_k}, bip T={r.bip_iters}), "
+              f"synthetic batch {TRAIN_BATCH} x {TRAIN_SEQ}, {MATRIX_STEPS} steps per cell, lr 1e-3, "
+              f"warmup {max(MATRIX_STEPS // 10, 1)}, use_kernel=True (K1/K2 every cell, K3 bip); "
+              f"bip[global]: sync='global', the plain bisection dual (use_kernel=False, ffn_kernel=True)")
+        cells = {m: balance_cell(torch, run, cfg, m, m, use_kernel=True) for m in ALL_SEVEN}
+        cells["bip[global]"] = balance_cell(torch, run, cfg, "bip[global]", "bip", sync="global",
+                                            use_kernel=False, ffn_kernel=True)
+        groups[f"{tag} synthetic"] = cells
+        launches[tag] = {k: sum(c["launches"][k] for c in cells.values()) for k in ("K1", "K2", "K3")}
+        if tag == "16e":
+            # the paper's four again, in reverse order: each method's p50 per pass
+            print(f"  second pass, the paper's four in reverse order ({', '.join(reversed(PAPER_FOUR))})")
+            again = {m: balance_cell(torch, run, cfg, f"{m} (pass 2)", m, use_kernel=True)
+                     for m in reversed(PAPER_FOUR)}
+            for k in ("K1", "K2", "K3"):
+                launches[tag][k] += sum(c["launches"][k] for c in again.values())
+            p50 = {m: (cells[m]["step_time_p50"], again[m]["step_time_p50"]) for m in PAPER_FOUR}
+            print("  steady step p50 per pass (pass 1 in order, pass 2 reversed): " + "; ".join(
+                f"{m} {1e3 * a:.2f} / {1e3 * b:.2f} ms" for m, (a, b) in p50.items()))
+            saved = [1.0 - p50["bip"][i] / p50["aux_loss"][i] for i in (0, 1)]
+            # the drift: the largest change of one method's p50 between the passes
+            drift = max(abs(a - b) / ((a + b) / 2) for a, b in p50.values())
+            mean = sum(saved) / 2
+            resolved = saved[0] * saved[1] > 0 and abs(mean) > drift
+            print(f"  bip's step time against aux_loss (the paper: >= 13% saved): pass 1 {100 * saved[0]:+.1f}%, "
+                  f"pass 2 {100 * saved[1]:+.1f}% saved; the passes' drift {100 * drift:.1f}% -> "
+                  + (f"resolved: {100 * mean:+.1f}%" if resolved
+                     else "unresolved (the passes disagree in sign, or the saving is within the drift)"))
+        del cells
+    cfg16 = configs.get("minimind_moe_16e")
+    print(f"[balance] {cfg16.name} full width on {CORPUS.relative_to(ROOT)} (tokenizer to vocab "
+          f"{cfg16.vocab_size}), pack_nocross {TRAIN_BATCH} x {TRAIN_SEQ}, {REAL_MICRO} microbatches, "
+          f"{MATRIX_STEPS} steps per cell, the paper's four")
+    real = {m: balance_cell(torch, run, cfg16, m, m, micro=REAL_MICRO, use_kernel=True, data=str(CORPUS),
+                            pack_mode="pack_nocross") for m in PAPER_FOUR}
+    groups["16e real text"] = real
+    launches["16e-micro"] = {k: sum(c["launches"][k] for c in real.values()) for k in ("K1", "K2", "K3")}
+
+    # the gate, then the rest of the paper's ordering as PASS/FAIL lines
+    for name, cells in groups.items():
+        bip, topk = cells["bip"]["AvgMaxVio"], cells["topk"]["AvgMaxVio"]
+        print(f"[balance] {name}: bip AvgMaxVio {bip:.4f} against topk {topk:.4f} (gate: <= 1.0 and below topk)")
+        if not (bip <= 1.0 and bip < topk):
+            raise AssertionError(f"{name}: bip AvgMaxVio {bip:.4f} (topk {topk:.4f}) fails the gate")
+        rows = [{"strategy": m, "AvgMaxVio": c["AvgMaxVio"], "SupMaxVio": c["SupMaxVio"],
+                 "first_batch_maxvio": c["first_step_max_vio"], "perplexity": c["final_ppl"]}
+                for m, c in cells.items() if m in ALL_SEVEN]
+        baselines = [m for m in ("aux_loss", "lossfree", "phi", "lpr") if m in cells]
+        print(f"[balance] {name}: the paper's checks, bip against {', '.join(baselines)} "
+              f"(perplexity: the final training step's)")
+        for check, ok in paper_repro.paper_checks(rows, baselines).items():
+            print(f"[{name}] {check}: {'PASS' if ok else 'FAIL'}")
+
+    # one gate beside the LP optimum, the reference's sizes, on CUDA tensors
+    rl = balance_sweep.aggregate_router_level(balance_sweep.router_level_compare(
+        methods=("bip", "bip[kernel]", "lossfree", "aux_loss", "topk", "phi", "lpr", "expert_choice"),
+        device="cuda"))
+    print("[balance] router level (n 256, m 8, k 2, skew 1.5, seeds 0-2; route() on CUDA tensors, the LP "
+          "optimum by HiGHS on the host): " + "; ".join(
+              f"{m} obj/LP {v['obj_ratio']:.4f} MaxVio {v['max_vio']:.4f} coverage full "
+              f"{v['coverage_full']:.4f} zero {v['coverage_zero']:.4f}" for m, v in rl.items()))
+    if rl["expert_choice"]["max_vio"] != 0.0:
+        raise AssertionError("router level: expert-choice MaxVio is not 0")
+    print(f"[balance] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -873,6 +1007,7 @@ def main() -> int:
     from repro_torch.data import SyntheticBatchStream, make_batches
     from repro_torch.kernels import bip_admm, moe_gemm, nvcc
     from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.launch import balance_sweep, paper_repro
     from repro_torch.models import Model, moe
     from repro_torch.optim import from_model_config, linear_warmup_cosine
     from repro_torch.serving import ContinuousBatchingEngine
@@ -1057,22 +1192,30 @@ def main() -> int:
     real_launches = train_real_text(torch, tcfg, (
         Model, init_train_state, train_loop, make_train_step, from_model_config, linear_warmup_cosine,
         data, robustness, moe_gemm, bip_admm), log.summary()["step_time_p50"])
+    torch.cuda.empty_cache()
+
+    # -- 12. the balance matrix at full width: every registered method on
+    # 16e and 64e, synthetic and real text
+    matrix_launches = balance_matrix(torch, configs, balance_sweep, paper_repro)
 
     record = []
     k1, k2 = "grouped_gated_ffn_in", "grouped_matmul"
     for name, line, use, times, shape, n_launches, max_err in (
         (k1, 41, "forward, serving shape; launches: serving", timings[k1], serve_shape,
          launches[k1], err[k1]),
-        (k1, 41, "forward, training shape; launches: training", train_timings[k1], TRAIN,
-         train_launches[k1], train_err[k1]),
+        (k1, 41, "forward, training shape; launches: training (phase 8) and phase 12's 16e synthetic "
+         "cells", train_timings[k1], TRAIN, train_launches[k1] + matrix_launches["16e"]["K1"], train_err[k1]),
         (k2, 94, "forward, serving shape; launches: serving", timings[k2], serve_shape,
          launches[k2], err[k2]),
-        (k2, 94, "forward, training shape; launches: training, all nine uses",
-         train_timings[k2], TRAIN, train_launches[k2], train_err[k2]),
-        (k1, 41, "forward, microbatch shape; launches: real-text training, 2 microbatches",
-         micro_timings[k1], MICRO, real_launches[k1], micro_err[k1]),
-        (k2, 94, "forward, microbatch shape; launches: real-text training, all nine uses",
-         micro_timings[k2], MICRO, real_launches[k2], micro_err[k2]),
+        (k2, 94, "forward, training shape; launches: training (phase 8) and phase 12's 16e synthetic "
+         "cells, all nine uses", train_timings[k2], TRAIN, train_launches[k2] + matrix_launches["16e"]["K2"],
+         train_err[k2]),
+        (k1, 41, "forward, microbatch shape; launches: real-text training (phase 11) and phase 12's "
+         "real-text cells, 2 microbatches", micro_timings[k1], MICRO,
+         real_launches[k1] + matrix_launches["16e-micro"]["K1"], micro_err[k1]),
+        (k2, 94, "forward, microbatch shape; launches: real-text training (phase 11) and phase 12's "
+         "real-text cells, all nine uses", micro_timings[k2], MICRO,
+         real_launches[k2] + matrix_launches["16e-micro"]["K2"], micro_err[k2]),
     ):
         k_ms, p_ms, lib_ms, _ = times
         b_ms, b_by = bound(name, shape, "bfloat16")
@@ -1090,15 +1233,16 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": lib_ms,
         })
-    for label, n_launches in (("16e", train_launches["bip_dual_update"]),
-                              ("16e-micro", real_launches["bip_dual_update"]),
-                              ("64e", train64_launches["bip_dual_update"])):
+    for label, n_launches in (("16e", train_launches["bip_dual_update"] + matrix_launches["16e"]["K3"]),
+                              ("16e-micro", real_launches["bip_dual_update"]
+                               + matrix_launches["16e-micro"]["K3"]),
+                              ("64e", train64_launches["bip_dual_update"] + matrix_launches["64e"]["K3"])):
         k_ms, p_ms, b_ms, b_by, (n, m, k, n_iters) = k3_timings[label]
         record.append({
             "name": "bip_dual_update",
             "use": f"the whole BIP dual update of one MoE layer, minimind-moe-{label} training "
                    f"(n, m, k, T, refine) = ({n}, {m}, {k}, {n_iters}, 1); launches: "
-                   f"{label} training",
+                   f"{label} training and its phase-12 bip cells",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bip_admm.cu",
             "replaces": "src/repro/kernels/bip_admm.py:43",

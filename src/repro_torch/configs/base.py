@@ -7,7 +7,7 @@ reference's, so a config built here describes the same model there.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
@@ -18,7 +18,11 @@ class RoutingSpec:
 
     The router-facing fields convert 1:1 into `core.types.RouterConfig`
     through `to_router_config()`, which is also where they are validated;
-    capacity_factor and moe_impl are model-level knobs of this spec only.
+    capacity_factor, moe_impl and ffn_kernel are model-level knobs of this
+    spec only. `use_kernel` drives both the expert FFN's kernels (K1/K2)
+    and bip's dual-update kernel (K3), as in the reference; `ffn_kernel`
+    (None: follow use_kernel) sets the expert FFN's apart, so a bip run on
+    the plain bisection dual can still go through K1/K2.
     """
 
     n_experts: int = 0
@@ -44,6 +48,7 @@ class RoutingSpec:
     lpr_decay: float = 0.99
     lpr_blend: float = 0.5
     moe_impl: str = "auto"
+    ffn_kernel: Optional[bool] = None
 
     def __post_init__(self):
         if self.n_experts > 0:

@@ -13,6 +13,8 @@ Layer i is group i // period of position i % period.
     load_npz_params(path, cfg, device)          reference npz checkpoint -> port params
     load_npz_tree(path)                         the npz as a tree of CPU tensors
     stack_blocks(layers, cfg)                   inverse of unstack_blocks
+    decay_mask(params)                          leaf path -> decayed by AdamW, as in the
+                                                reference's stacked layout
     train_state_to_tree(state, cfg)             port TrainState -> the reference's
                                                 {'params', 'opt_state', 'router_states'}
 
@@ -21,7 +23,7 @@ leaves arrive as ml_dtypes bfloat16 arrays or as uint16 bit patterns.
 """
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -85,6 +87,22 @@ def stack_blocks(layers: List[Any], cfg: ModelConfig) -> List[Any]:
         _zip_map(layers[j::period], lambda xs: torch.stack([x.detach() for x in xs]))
         for j in range(period)
     ]
+
+
+def decay_mask(params) -> Dict[str, bool]:
+    """AdamW's weight-decay mask, keyed by leaf path (`optim.adamw.tree_paths`).
+
+    The reference decays a leaf when it has ndim >= 2 in ITS layout, where
+    every leaf under the per-layer blocks carries the leading group axis
+    that `stack_blocks` adds: a per-layer (d,) norm scale is (G, d) there
+    and is decayed. Leaves outside the stack count as they are (the
+    embedding is decayed, `final_norm` is not)."""
+    from repro_torch.optim.adamw import tree_paths  # lazy: optim imports nothing of the models
+
+    return {
+        path: leaf.dim() + (1 if path.startswith("stack.layers[") else 0) >= 2
+        for path, leaf in tree_paths(params)
+    }
 
 
 def params_to_tree(params, cfg: ModelConfig):
@@ -175,6 +193,7 @@ def load_npz_params(path: str, cfg: ModelConfig, device="cpu"):
 
 
 __all__ = [
+    "decay_mask",
     "load_npz_params",
     "load_npz_tree",
     "params_from_numpy",

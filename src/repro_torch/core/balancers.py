@@ -3,10 +3,13 @@ src/repro/core/balancers.py).
 
 `route()` (core/router.py) resolves `cfg.strategy` here and calls the hook
 protocol: init_state / check_config / guard_keys / score_adjust / select /
-aux_loss / update_state / finalize_metrics. The port registers the
-strategies the serving path needs: 'topk' (no balancing) and 'bip' (the
-paper). The other reference methods (aux_loss, lossfree, phi, lpr,
-expert_choice) are not ported yet and fail validation by name.
+aux_loss / update_state / finalize_metrics. The port registers every
+method of the reference: the paper's four (topk, aux_loss, lossfree, bip),
+expert_choice (training-only) here, and phi (core/phi.py) and lpr
+(core/lpr.py), which self-register when this module is imported.
+Expert-choice leaves a token's spare slots at the sentinel index m with
+weight 0: every one-hot here drops it (`one_hot`), and the dispatch plan
+never keeps it.
 """
 from __future__ import annotations
 
@@ -59,6 +62,13 @@ def get_balancer(name: str) -> "Balancer":
             f"unknown routing strategy {name!r}; registered: "
             f"{', '.join(registered_balancers())}"
         ) from None
+
+
+def one_hot(idx: Tensor, m: int, dtype) -> Tensor:
+    """(..., m) one-hot rows of `idx`; the sentinel index m (expert-choice's
+    uncovered slots) gives a zero row, as jax.nn.one_hot does for an index
+    out of range (F.one_hot raises on it)."""
+    return torch.nn.functional.one_hot(idx.long(), m + 1)[..., :m].to(dtype)
 
 
 def topk_select(s: Tensor, corrected: Tensor, cfg: RouterConfig) -> Tuple[Tensor, Tensor]:
@@ -140,7 +150,7 @@ class AuxLossBalancer(Balancer):
 
     def aux_loss(self, s, idx, cfg, token_mask=None):
         n, m = s.shape
-        onehot = torch.nn.functional.one_hot(idx.long(), m).to(s.dtype)  # (n, k, m)
+        onehot = one_hot(idx, m, s.dtype)  # (n, k, m)
         if token_mask is not None:
             w = token_mask.to(s.dtype)
             n_eff = torch.clamp_min(w.sum(), 1.0)
@@ -158,7 +168,7 @@ def selection_load(idx: Tensor, m: int, dtype, token_mask: Optional[Tensor] = No
     valued, so exact in any summation order."""
     if axis_names:
         raise NotImplementedError(_NO_MESH)
-    onehot = torch.nn.functional.one_hot(idx.long(), m).to(dtype)
+    onehot = one_hot(idx, m, dtype)
     if token_mask is not None:
         onehot = onehot * token_mask.to(dtype)[:, None, None]
     return onehot.sum(dim=(0, 1)).detach()
@@ -263,15 +273,59 @@ class BIPBalancer(Balancer):
         return corrected, updates, {}
 
 
+@register_balancer("expert_choice")
+class ExpertChoiceBalancer(Balancer):
+    """Expert-Choice (Zhou et al. 2022): each EXPERT takes its top-C tokens.
+
+    Balance is perfect by construction (C = floor(k·n/m) per expert), but
+    tokens may receive fewer than k experts: their spare slots carry the
+    sentinel index m with weight 0, so they take no capacity and no load.
+    TRAINING ONLY: an expert's top-C over the batch makes one token's
+    selection depend on later tokens, so masked serving raises (route()
+    checks `serving_ok`).
+    """
+
+    serving_ok = False
+
+    def check_config(self, cfg):
+        super().check_config(cfg)
+        if cfg.sync == "global":
+            _warn_once(
+                "expert-choice-sync",
+                "expert_choice selects each expert's top-C over the "
+                "device-local token shard; sync='global' does not globalize "
+                "the selection (no cross-shard top-C).",
+            )
+
+    def select(self, s, corrected, cfg):
+        from repro_torch.core.expert_choice import expert_choice_select  # lazy: as the reference
+
+        return expert_choice_select(s, cfg.top_k, norm_topk_prob=cfg.norm_topk_prob)
+
+    def finalize_metrics(self, base, s, w, idx, cfg):
+        # coverage columns: the share of tokens that got all k experts / none
+        per_token = (idx < s.shape[-1]).sum(dim=-1)
+        base = dict(base)
+        base["coverage_full"] = (per_token >= cfg.top_k).float().mean()
+        base["coverage_zero"] = (per_token == 0).float().mean()
+        return base
+
+
 def router_metrics(bal: Balancer, s, w, idx, cfg: RouterConfig) -> Dict[str, Tensor]:
     """Balance metrics + the balancer's method-specific columns."""
     base = balance_metrics(idx, cfg.n_experts, cfg.top_k)
     return bal.finalize_metrics(base, s, w, idx, cfg)
 
 
+# the φ-Balancing and Latent-Prototype-Routing modules self-register on
+# import; importing them here populates the full registry
+from repro_torch.core import lpr as _lpr  # noqa: E402,F401  (self-registering)
+from repro_torch.core import phi as _phi  # noqa: E402,F401  (self-registering)
+
 __all__ = [
     "Balancer",
     "get_balancer",
+    "one_hot",
     "register_balancer",
     "registered_balancers",
     "router_metrics",

@@ -41,7 +41,8 @@ class DispatchPlan:
     order    (n·k,) stable argsort of expert assignments (masked -> sentinel m)
     offsets  (m+1,) segment start of each expert's queue in sorted order
     pos      (n, k) position of each (token, slot) in its expert's queue
-    keep     (n, k) slot survives capacity (and token_mask)
+    keep     (n, k) slot survives capacity (and token_mask); a sentinel slot
+             (expert index m) never does
     """
 
     expert_index: Tensor  # (n, k)
@@ -67,6 +68,11 @@ class DispatchPlan:
         src_sorted = self.offsets[se] + slots % cap
         valid = src_sorted < self.offsets[se + 1]
         src_tok = self.order[torch.clamp_max(src_sorted, nk - 1)] // self.top_k
+        # an empty slot reads a token of its own (its row is zeroed): the
+        # backward of a gather on the card adds the rows of one repeated
+        # index one after another, and an unbalanced routing leaves
+        # thousands of empty slots
+        src_tok = torch.where(valid, src_tok, slots % x.shape[0])
         buf = gather_rows(x, src_tok) * valid[:, None].to(x.dtype)
         return buf.reshape(m, cap, x.shape[-1])
 
@@ -77,7 +83,10 @@ class DispatchPlan:
         n, k = self.expert_index.shape
         ok = self.keep.reshape(-1)
         slot = (self.expert_index * cap + self.pos).reshape(-1)
-        g = gather_rows(y.reshape(m * cap, d), torch.where(ok, slot, 0))
+        # a dropped slot reads a row of its own (its product is zeroed), for
+        # the gather's backward as in pack
+        spread = torch.arange(n * k, device=y.device) % (m * cap)
+        g = gather_rows(y.reshape(m * cap, d), torch.where(ok, slot, spread))
         w = weights.reshape(-1, 1).to(y.dtype)
         contrib = torch.where(ok[:, None], g * w, torch.zeros((), dtype=y.dtype, device=y.device))
         return contrib.reshape(n, k, d).sum(dim=1)
@@ -90,7 +99,8 @@ def make_dispatch_plan(
     token_mask: Optional[Tensor] = None,  # (n,) bool; False never dispatches
 ) -> DispatchPlan:
     """Build the sort-based plan; masked tokens are re-keyed to the sentinel
-    expert m, so the stable sort pushes them past every real segment."""
+    expert m, so the stable sort pushes them past every real segment, where
+    expert-choice's own sentinel slots (index m, weight 0) already sort."""
     n, k = expert_index.shape
     nk = n * k
     dev = expert_index.device
@@ -103,7 +113,10 @@ def make_dispatch_plan(
     # rank within the expert's segment == position in its capacity queue
     pos_sorted = torch.arange(nk, device=dev) - offsets[sorted_e]
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted).reshape(n, k)
-    keep = pos < capacity
+    # a sentinel slot (expert index m: an expert-choice token's spare slot)
+    # is never kept, so combine never forms its out-of-range row; the
+    # reference keeps it and lets its clamped gather times weight 0 vanish
+    keep = (pos < capacity) & (expert_index < n_experts)
     if token_mask is not None:
         keep = keep & token_mask[:, None]
     return DispatchPlan(

@@ -46,10 +46,12 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def _expert_ffn(w_gate, w_up, w_down, xb, cfg: ModelConfig) -> Tensor:
     """Expert FFN over the packed (e, c, d) buffer. With routing.use_kernel
-    (and SwiGLU) it runs the CUDA kernel pair; the fp32 expert weights are
-    cast to the compute dtype on every call, as the reference does."""
+    (or routing.ffn_kernel, where set) and SwiGLU it runs the CUDA kernel
+    pair; the fp32 expert weights are cast to the compute dtype on every
+    call, as the reference does."""
     dt = cfg.compute_dtype
-    if cfg.routing.use_kernel and cfg.act == "silu":
+    r = cfg.routing
+    if (r.use_kernel if r.ffn_kernel is None else r.ffn_kernel) and cfg.act == "silu":
         from repro_torch.kernels import ops as kernel_ops
 
         return kernel_ops.expert_ffn(

@@ -2,8 +2,11 @@
 (port of src/repro/optim/adamw.py).
 
 State mirrors the params tree: {'step': int, 'mu': tree, 'nu': tree}. The
-update math runs in fp32 whatever the stored dtypes; weight decay applies
-to matrices (ndim >= 2) only.
+update math runs in fp32 whatever the stored dtypes. Weight decay applies
+to the leaves the reference decays: those whose counterpart in the
+reference's stacked layout is a matrix (ndim >= 2). The port keeps one
+dict per layer, so a per-layer (d,) norm scale is (G, d) there and is
+decayed (`convert.decay_mask`).
 
 Unlike the reference, which returns new trees, `adamw_update` updates the
 params and moments IN PLACE under torch.no_grad() (one copy of the state
@@ -55,6 +58,16 @@ def tree_leaves(tree) -> List[Tensor]:
     return [] if tree is None else [tree]
 
 
+def tree_paths(tree, prefix: str = "") -> List[Tuple[str, Tensor]]:
+    """(path, leaf) pairs in the order of `tree_leaves`; a path names dict
+    keys with dots and list positions in brackets ('stack.layers[0].attn.wq')."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_paths(tree[k], f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in tree_paths(v, f"{prefix}[{i}]")]
+    return [] if tree is None else [(prefix, tree)]
+
+
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
@@ -82,18 +95,22 @@ def adamw_update(
     params,
     lr: float,
     cfg: AdamWConfig,
+    decay: Dict[str, bool],
     guard: Optional[Tensor] = None,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """One AdamW step, in place. `grads` are in the order of
     tree_leaves(params). Returns (params, opt_state, info) with info
     {'grad_norm': device scalar, 'lr': lr}.
 
+    `decay` maps each leaf's path (`tree_paths`) to whether weight decay
+    applies to it (`convert.decay_mask` builds it for the model's params).
+
     `guard` (a device bool scalar) makes the step conditional without a
     host sync: ok = guard & isfinite(grad_norm), every param and moment
     write is torch.where(ok, new, old), info gains 'step_ok' (ok) and
     `step` is NOT advanced: the caller advances it once it has read ok."""
     step = opt_state["step"] + 1
-    p_leaves = tree_leaves(params)
+    p_paths = tree_paths(params)
     mu_leaves, nu_leaves = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
     gnorm = global_norm(grads)
     ok = None if guard is None else guard & torch.isfinite(gnorm)
@@ -105,14 +122,14 @@ def adamw_update(
     c1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** float(step)
     c2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** float(step)
     c1, c2 = float(c1), float(c2)  # host scalars: fp32 values, no device sync
-    for g, mu, nu, p in zip(grads, mu_leaves, nu_leaves, p_leaves):
+    for g, mu, nu, (path, p) in zip(grads, mu_leaves, nu_leaves, p_paths):
         if scale is not None:
             g = g * scale.to(g.dtype)
         g32 = g.float()
         mu_n = b1 * mu.float() + (1 - b1) * g32
         nu_n = b2 * nu.float() + (1 - b2) * g32 * g32
         delta = (mu_n / c1) / (torch.sqrt(nu_n / c2) + cfg.eps)
-        if p.dim() >= 2 and cfg.weight_decay > 0:  # decay matrices only
+        if decay[path] and cfg.weight_decay > 0:  # matrices of the reference's layout
             delta = delta + cfg.weight_decay * p.float()
         p.copy_(keep(p.float() - lr * delta, p))
         mu.copy_(keep(mu_n, mu))

@@ -47,6 +47,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.convert import decay_mask
 from repro_torch.core.metrics import BalanceTracker
 from repro_torch.data.prefetch import batch_to_torch
 from repro_torch.models.model import Model
@@ -155,7 +156,11 @@ def make_train_step(
         mets["loss"] = loss.detach()
         return grads, router, mets
 
+    decay: Dict[str, bool] = {}  # AdamW's weight-decay mask, built at the first step
+
     def run(state: TrainState, batch, controls):
+        if not decay:
+            decay.update(decay_mask(state.params))
         inject, force_skip, lr_scale = (False, False, 1.0) if controls is None else (
             float(controls[CTRL_INJECT_NAN]) > 0,
             float(controls[CTRL_FORCE_SKIP]) > 0,
@@ -185,7 +190,7 @@ def make_train_step(
         if controls is not None:
             guard = torch.isfinite(mets["loss"]) & (not force_skip)
         _, _, info = _adamw.adamw_update(list(grads), state.opt_state, state.params, lr, opt_cfg,
-                                         guard=guard)
+                                         guard=guard, decay=decay)
         mets.update(info)
         if controls is None:
             state.router_states = new_router

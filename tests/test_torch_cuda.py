@@ -1,6 +1,7 @@
 """The port on the GPU: the CUDA kernels against their plain versions, the
 serving engine and the train step launching them, the prefetcher's copies
-to the card and the checkpoint's on-device snapshot. Needs an NVIDIA GPU and
+to the card, the checkpoint's on-device snapshot, and the phi / lpr /
+expert_choice balancers (expert-choice's sentinel slots included). Needs an NVIDIA GPU and
 nvcc; skips elsewhere. Imports no JAX, so it runs where only the port is
 installed:
 
@@ -451,3 +452,81 @@ def test_guarded_microbatched_step_on_the_card(cuda_device):
     assert not bool(mets["step_ok"]) and state.opt_state["step"] == 1
     after = leaves(state)
     assert len(after) == len(before) and all(torch.equal(x, y) for x, y in zip(after, before))
+
+
+# ------------------------------------------------ the other balancers
+
+
+@pytest.mark.parametrize("strategy", ["phi", "lpr", "expert_choice"])
+def test_new_balancers_route_on_the_card_as_on_the_cpu(cuda_device, strategy):
+    """route() over 3 carried steps on CUDA tensors equals the same calls
+    on the CPU: selections and counts exactly, weights and state within
+    fp32 rounding (exp and matmul may round otherwise on the card)."""
+    from repro_torch.core import init_router_state, route
+
+    tc = configs.get("minimind_moe_16e").routing.to_router_config(strategy=strategy)
+    sc, sg = init_router_state(tc), init_router_state(tc, cuda_device)
+    rng = np.random.default_rng(11)
+    for _ in range(3):
+        logits = torch.from_numpy(
+            (rng.standard_normal((512, 16)) * 1.5 + 2.0 * np.linspace(-1, 1, 16)).astype(np.float32))
+        oc = route(logits, sc, tc)
+        og = route(logits.to(cuda_device), sg, tc)
+        assert torch.equal(og.expert_index.cpu(), oc.expert_index)
+        assert torch.equal(og.metrics["load"].cpu(), oc.metrics["load"])
+        torch.testing.assert_close(og.combine_weights.cpu(), oc.combine_weights, rtol=1e-6, atol=1e-7)
+        for key in sc:
+            torch.testing.assert_close(og.state[key].cpu(), oc.state[key], rtol=1e-5, atol=1e-7)
+        sc, sg = oc.state, og.state
+    if strategy == "expert_choice":
+        assert int((og.expert_index == 16).sum()) > 0  # sentinel slots were formed
+        assert float(og.metrics["max_vio"]) == 0.0
+
+
+def test_sentinel_plan_packs_and_combines_on_the_card(cuda_device):
+    """Expert-choice's sentinel slots (index m, weight 0) through the
+    dispatch plan on CUDA: no device assert, and pack/combine/counts equal
+    to the CPU's."""
+    from repro_torch.core import expert_choice_select, make_dispatch_plan
+
+    rng = np.random.default_rng(2)
+    s = torch.softmax(torch.from_numpy(
+        (rng.standard_normal((512, 16)) + 3.0 * np.linspace(-1, 1, 16)).astype(np.float32)), dim=-1)
+    w, idx = expert_choice_select(s, 4)
+    assert int((idx == 16).sum()) > 0
+    x = torch.from_numpy(rng.standard_normal((512, 64)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        plan = make_dispatch_plan(idx.to(dev), 16, 160)
+        buf = plan.pack(x.to(dev))
+        y = plan.combine(buf * 2.0, w.to(dev))
+        outs.append((buf.cpu(), y.cpu(), plan.counts.cpu()))
+    torch.cuda.synchronize()
+    (bc, yc, cc), (bg, yg, cg) = outs
+    assert torch.equal(bg, bc) and torch.equal(cg, cc)
+    torch.testing.assert_close(yg, yc, rtol=1e-6, atol=1e-6)
+
+
+def test_expert_choice_trains_full_width_through_the_kernels(cuda_device):
+    """Two full-width minimind-moe-16e steps with expert_choice (batch 4 x
+    512): K1 once and K2 nine times per MoE layer and step, no K3, finite
+    losses, MaxVio 0."""
+    full = configs.get("minimind_moe_16e")
+    cfg = dataclasses.replace(full, routing=dataclasses.replace(
+        full.routing, strategy="expert_choice", use_kernel=True))
+    model = Model(cfg)
+    opt = from_model_config(cfg)
+    state = init_train_state(model, 0, opt)
+    step = make_train_step(model, opt, constant(1e-3))
+    moe_gemm.reset_launch_counts()
+    bip_admm.reset_launch_counts()
+    losses = []
+    for batch in make_batches(cfg, 4, 512, 2, device=cuda_device):
+        state, mets = step(state, batch)
+        losses.append(float(mets["loss"]))
+    n_moe, steps = cfg.n_layers, 2
+    assert moe_gemm.grouped_gated_ffn_in.launches == n_moe * steps
+    assert moe_gemm.grouped_matmul.launches == n_moe * 9 * steps
+    assert bip_admm.bip_dual_update.launches == 0
+    assert all(np.isfinite(losses))
+    assert float(mets["max_vio_per_layer"].max()) == 0.0
