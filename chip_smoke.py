@@ -93,6 +93,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      any one method's p50. Last,
      one gate on skewed scores on CUDA tensors (bip with and without K3 and
      every other method) beside the LP optimum solved on the host.
+ 13. observability and the last training flags, minimind-moe-16e at full
+     width: (1) train_loop runs bare, with telemetry, with telemetry, bare
+     (20 steps, one init and stream, the ring drained every 10 steps): the
+     telemetry runs bitwise equal to the bare one (or, where two bare runs
+     differ, by no more than they do), 20 records per run with integer
+     (8, 16) loads whose rows sum to n·k = 32768, metrics_report's
+     per-layer AvgMaxVio equal to TrainLog's, each run's step p50 and the
+     overhead of both pairs against the reference's 2% budget (printed:
+     within / over only when both pairs agree and the two bare runs are
+     closer than the budget, else unresolved);
+     (2) `launch.train.main` with --profile 3:5 --telemetry, 8 steps: the
+     Chrome trace holds the nine training span names and K1, K2 and K3,
+     and exactly three steps; launches per step with telemetry and the
+     part of them inside telemetry/accumulate; (3) sync='global' (the
+     bisection dual, K1/K2 on), 8 steps with the forecaster on and off:
+     p50s, forecast_hit per layer, and, in a third run, the forecast's q
+     against the plain bisection's on the same scores at every layer and
+     step (gate: within T bisection widths plus rounding); the watchdog:
+     healthy runs with guard_duals on and off bitwise equal, and a run
+     from layer 0's q poisoned with NaN equal to the run from zeros, with
+     finite losses; (4) the engine with profile=(2, 4): the trace holds
+     three serve/step spans and K1 and K2.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
 that outlives it (nvcc and nvidia-smi run to completion).
@@ -336,6 +358,11 @@ def print_forward_times(timings, shape):
               f"({b_by}); kernel per call by CUDA events {call_ms:.4f} ms")
 
 
+# the port's profiler spans (telemetry/trace.py call sites)
+SPAN_NAMES = {"train/fwd_bwd", "train/apply", "router/score_adjust", "router/select", "router/update_state",
+              "moe/dispatch", "moe/gemm", "moe/combine", "telemetry/accumulate", "serve/step"}
+
+
 # the kernels by profiler name: the bf16 GEMM's instantiations by template
 # argument GATED, and the fused dual update
 KERNELS = {"K1": "wgmma_gemm_kernel<true", "K2": "wgmma_gemm_kernel<false",
@@ -346,7 +373,10 @@ def summarize_trace(torch, prof, label, n_steps, wall_us):
     """Device busy share of the wall time, kernel launches per step, K1, K2
     and K3 device time per step, and the kernels with the most device time,
     from a torch.profiler trace."""
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events, less the spans' device-side copies (gpu_user_annotation ranges
+    # that cover the kernels launched under each span)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.name not in SPAN_NAMES]
     if not kernels:
         print(f"[{label}] the profiler recorded no device activity: busy share not measured")
         return
@@ -994,6 +1024,321 @@ def balance_matrix(torch, configs, balance_sweep, paper_repro):
     return launches
 
 
+# phase 13: observability and the last training flags
+OBS_STEPS, OBS_FLUSH = 20, 10  # the telemetry A/B: steps per run, the ring's window
+FORECAST_STEPS, WATCH_STEPS = 8, 3
+PROFILE_WINDOW, PROFILE_STEPS = (3, 5), 8
+SERVE_WINDOW = (2, 4)
+SPANS = tuple(sorted(SPAN_NAMES - {"serve/step"}))  # a training step's
+
+
+def leaf_gap(torch, a, b):
+    """(bitwise equal, max |a - b|) over two TrainStates' named tensors."""
+    la, lb = state_leaves(a), state_leaves(b)
+    if [n for n, _ in la] != [n for n, _ in lb]:
+        raise AssertionError("the two states hold different tensors")
+    equal = all(torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
+    gap = max(float((x.detach().float() - y.detach().float()).abs().max()) for (_, x), (_, y) in zip(la, lb))
+    return equal and a.opt_state["step"] == b.opt_state["step"], gap
+
+
+def read_trace(path):
+    """A Chrome trace's events: kernels, runtime launch calls, memcpys, and
+    the user spans by name (each as (ts, dur) on the host's clock)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            spans.setdefault(e["name"], []).append((e["ts"], e.get("dur", 0)))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    # runtime and low-level API launch calls ('cuda_*' categories)
+    launches = [e for e in events if e.get("cat", "").startswith("cuda_") and "LaunchKernel" in e.get("name", "")]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    return spans, kernels, launches, copies
+
+
+def check_trace(path, spans_wanted, kernels_wanted, label):
+    """Fails unless the trace holds every span and kernel name asked for;
+    returns read_trace's parts."""
+    spans, kernels, launches, copies = read_trace(path)
+    names = {e["name"] for e in kernels}
+    missing = [s for s in spans_wanted if s not in spans]
+    missing += [k for k in kernels_wanted if not any(KERNELS[k] in n for n in names)]
+    print(f"  {label}: trace {os.path.basename(path)} ({os.path.getsize(path) / 1e6:.1f} MB): spans "
+          f"{ {s: len(spans.get(s, ())) for s in spans_wanted} }; kernels "
+          f"{ {k: sum(KERNELS[k] in e['name'] for e in kernels) for k in kernels_wanted} }")
+    if missing:
+        raise AssertionError(f"{label}: the trace lacks {missing}")
+    return spans, kernels, launches, copies
+
+
+def observability(torch, cfg, mods):
+    """Phase 13 (see the module doc). Returns the kernels' launches of the
+    phase: {'train': {K1, K2, K3}, 'serve': {K1, K2}}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    (Model, SyntheticBatchStream, init_train_state, train_loop, from_model_config, moe_gemm, bip_admm,
+     telemetry, metrics_report, launch_train, ContinuousBatchingEngine, balancers, ref_bip) = mods
+    t_phase = time.perf_counter()
+    launches = {"train": {"K1": 0, "K2": 0, "K3": 0}, "serve": {"K1": 0, "K2": 0}}
+    n_moe = sum(ffn == "moe" for _, ffn in cfg.layer_kinds())
+    nk = TRAIN_BATCH * TRAIN_SEQ * cfg.routing.top_k
+
+    def counts():
+        return {"K1": moe_gemm.grouped_gated_ffn_in.launches, "K2": moe_gemm.grouped_matmul.launches,
+                "K3": bip_admm.bip_dual_update.launches}
+
+    def reset():
+        moe_gemm.reset_launch_counts()
+        bip_admm.reset_launch_counts()
+
+    def run(rcfg, steps, tel=None, state=None, seed=0, want_k3=True):
+        """train_loop at full width on the synthetic stream `seed`, from a
+        fresh init (seed 0) unless `state` is given; asserts and counts the
+        launches."""
+        model = Model(rcfg, device="cuda")
+        if state is None:
+            state = init_train_state(model, 0, from_model_config(rcfg))
+        stream = SyntheticBatchStream(rcfg, TRAIN_BATCH, TRAIN_SEQ, steps, seed=seed, device="cuda")
+        reset()
+        state, log = train_loop(model, stream, lr=1e-3, warmup_steps=5, total_steps=steps, state=state,
+                                telemetry=tel)
+        got = counts()
+        want = {"K1": n_moe * steps, "K2": 9 * n_moe * steps, "K3": n_moe * steps if want_k3 else 0}
+        if got != want:
+            raise AssertionError(f"launches {got} in {steps} steps, expected {want}")
+        for k, v in got.items():
+            launches["train"][k] += v
+        if not all(math.isfinite(v) for v in log.losses):
+            raise AssertionError("a non-finite loss")
+        return state, log
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    cwd = os.getcwd()
+    try:
+        # -- 13.1 telemetry A/B: bare / telemetry / telemetry / bare
+        print(f"[observability] telemetry A/B: {cfg.name} full width, bip T={cfg.routing.bip_iters} on K3, "
+              f"synthetic {TRAIN_BATCH} x {TRAIN_SEQ}, {OBS_STEPS} steps per run, flush_every {OBS_FLUSH}; "
+              f"runs bare, telemetry, telemetry, bare (one init, one stream)")
+        order = ("bare", "telemetry", "telemetry", "bare")
+        p50s, ref_state, ref_log, equal, gaps, records = [], None, None, [], [], []
+        for i, kind in enumerate(order):
+            tel = None
+            if kind == "telemetry":
+                path = os.path.join(tmp, f"run{i}.jsonl")
+                tel = telemetry.TrainTelemetry(telemetry.JSONLSink(path), flush_every=OBS_FLUSH,
+                                               run_meta={"arch": cfg.name, "run": i})
+            state, log = run(cfg, OBS_STEPS, tel)
+            if tel is not None:
+                tel.sink.close()
+                records.append((metrics_report.load_records(path), log))
+            p50s.append(log.summary()["step_time_p50"])
+            if ref_state is None:
+                ref_state, ref_log = state, log
+            else:
+                same, gap = leaf_gap(torch, ref_state, state)
+                equal.append(same and log.losses == ref_log.losses)
+                gaps.append(gap)
+            del state
+            torch.cuda.empty_cache()
+        # equal/gaps: run 1 (telemetry), run 2 (telemetry), run 3 (bare) against run 0 (bare)
+        bare_equal = equal[2]
+        print(f"  bitwise against run 0 (bare): telemetry runs {equal[0]} / {equal[1]} (max |diff| {gaps[0]:.3e} / "
+              f"{gaps[1]:.3e}), the other bare run {bare_equal} (max |diff| {gaps[2]:.3e})")
+        if bare_equal:
+            print("  transparency check: bitwise (two bare runs are bitwise equal)")
+            if not (equal[0] and equal[1]):
+                raise AssertionError("a telemetry run is not bitwise equal to the bare run")
+        else:
+            print("  transparency check: differ no more than two bare runs do (two bare runs differ)")
+            if max(gaps[:2]) > gaps[2]:
+                raise AssertionError("a telemetry run differs from the bare run more than two bare runs do")
+        del ref_state
+        for recs, log in records:
+            steps = [r for r in recs if r["kind"] == "train_step"]
+            if [r["step"] for r in steps] != list(range(OBS_STEPS)):
+                raise AssertionError(f"train_step records {[r['step'] for r in steps]}")
+            for r in steps:
+                load = np.asarray(r["load_per_layer"])
+                if load.shape != (n_moe, cfg.routing.n_experts) or load.dtype.kind != "i":
+                    raise AssertionError(f"load_per_layer {load.shape} {load.dtype}")
+                if not (load.sum(axis=1) == nk).all():
+                    raise AssertionError(f"step {r['step']}: loads sum to {load.sum(axis=1)}, not {nk}")
+            summ = metrics_report.summarize(recs)
+            want = log.summary()["AvgMaxVio_per_layer"]
+            if not np.allclose(summ["AvgMaxVio_per_layer"], want, rtol=1e-6, atol=0):
+                raise AssertionError(f"metrics_report AvgMaxVio {summ['AvgMaxVio_per_layer']} != TrainLog {want}")
+        print(f"  records: {OBS_STEPS} train_step records per telemetry run, load_per_layer ({n_moe}, "
+              f"{cfg.routing.n_experts}) integers, every row summing to n·k = {nk}; metrics_report per-layer "
+              f"AvgMaxVio {[round(v, 4) for v in summ['AvgMaxVio_per_layer']]} = TrainLog's")
+        over = [p50s[1] / p50s[0] - 1.0, p50s[2] / p50s[3] - 1.0]
+        drift = abs(p50s[3] / p50s[0] - 1.0)  # between the two bare runs
+        with open(ROOT / "BENCH_telemetry_overhead.json") as f:
+            budget = json.load(f)["budget_frac"]
+        # a verdict needs both pairs on one side of the budget, and the bare
+        # runs closer to each other than the budget
+        verdict = ("unresolved" if drift > budget else "within" if all(o <= budget for o in over) else
+                   "over" if all(o > budget for o in over) else "unresolved")
+        print(f"  step p50 ms: " + ", ".join(f"{k} {1e3 * p:.2f}" for k, p in zip(order, p50s))
+              + f"; overhead pair 1 (runs 0, 1) {100 * over[0]:+.2f}%, pair 2 (runs 3, 2) {100 * over[1]:+.2f}%, "
+              f"the bare runs {100 * drift:.2f}% apart; against the reference's {100 * budget:.0f}% budget "
+              f"(BENCH_telemetry_overhead.json budget_frac): {verdict}")
+
+        # -- 13.2 the profiler window through the training CLI
+        os.chdir(tmp)  # ./profile lands in the temporary directory
+        tpath = os.path.join(tmp, "cli.jsonl")
+        argv = ["--arch", "minimind-moe-16e", "--steps", str(PROFILE_STEPS), "--batch", str(TRAIN_BATCH),
+                "--seq-len", str(TRAIN_SEQ), "--log-every", "0", "--flush-every", "4",
+                "--profile", f"{PROFILE_WINDOW[0]}:{PROFILE_WINDOW[1]}", "--telemetry", tpath]
+        print(f"[observability] python -m repro_torch.launch.train {' '.join(argv)}")
+        reset()
+        t0 = time.perf_counter()
+        if launch_train.main(argv) != 0:
+            raise AssertionError("launch.train.main failed")
+        cli_s = time.perf_counter() - t0
+        got = counts()
+        n_eval = 4  # evaluate_ppl's held-out batches, forward only
+        want = {"K1": n_moe * (PROFILE_STEPS + n_eval), "K2": n_moe * (9 * PROFILE_STEPS + n_eval),
+                "K3": n_moe * (PROFILE_STEPS + n_eval)}
+        if got != want:
+            raise AssertionError(f"the CLI run launched {got}, expected {want}")
+        for k, v in got.items():
+            launches["train"][k] += v
+        lo, hi = PROFILE_WINDOW
+        trace = os.path.join(tmp, "profile", f"steps_{lo}-{hi}.pt.trace.json")
+        spans, kernels, rt_launches, copies = check_trace(trace, SPANS, ("K1", "K2", "K3"),
+                                                          f"training window {lo}:{hi}")
+        n_win = hi - lo + 1
+        if len(spans["train/fwd_bwd"]) != n_win:
+            raise AssertionError(f"{len(spans['train/fwd_bwd'])} train/fwd_bwd spans, expected {n_win}: "
+                                 f"steps outside [{lo}, {hi}] were captured")
+        acc = spans["telemetry/accumulate"]
+        in_acc = sum(any(t <= e["ts"] <= t + d for t, d in acc) for e in rt_launches)
+        per_step = len(kernels) / n_win
+        by_kind = {}
+        for e in copies:
+            by_kind[e["name"]] = by_kind.get(e["name"], 0) + 1
+        print(f"  the CLI run: {cli_s:.1f} s wall (profiler and trace export included); {len(kernels)} kernels "
+              f"in the window = {per_step:.0f} per step with telemetry, of which {in_acc / n_win:.0f} launched "
+              f"inside telemetry/accumulate, so {per_step - in_acc / n_win:.0f} per step bare; copies in the "
+              f"window by kind {by_kind} (the drain after step {lo}, flush_every 4: two Device -> Pinned)")
+        os.chdir(cwd)
+
+        # -- 13.3 the forecaster (sync='global': the bisection dual) and the watchdog
+        def with_routing(**kw):
+            return dataclasses.replace(cfg, routing=dataclasses.replace(cfg.routing, **kw))
+
+        glob = dict(sync="global", use_kernel=False, ffn_kernel=True)
+        print(f"[observability] forecaster: sync='global' (the bisection dual, n_bisect "
+              f"{cfg.routing.n_bisect}, fanout {cfg.routing.bisect_fanout}; K3 off, K1/K2 on), "
+              f"{FORECAST_STEPS} steps, forecast on against off")
+        fc = {}
+        for on in (True, False):
+            sink = telemetry.MemorySink()
+            _, log = run(with_routing(forecast=on, **glob), FORECAST_STEPS,
+                         telemetry.TrainTelemetry(sink, flush_every=FORECAST_STEPS), want_k3=False)
+            fc[on] = ([r for r in sink.records if r["kind"] == "train_step"], log)
+        q_run_gap = [float(np.max(np.abs(np.asarray(a["q_abs_max_per_layer"]) - b["q_abs_max_per_layer"])))
+                     for a, b in zip(fc[True][0], fc[False][0])]
+        hits = np.asarray([r["forecast_hit_per_layer"] for r in fc[True][0]])  # (steps, layers)
+        print(f"  step p50 forecast on {1e3 * fc[True][1].summary()['step_time_p50']:.2f} ms, off "
+              f"{1e3 * fc[False][1].summary()['step_time_p50']:.2f} ms; losses on {fc[True][1].losses[-1]:.4f} "
+              f"off {fc[False][1].losses[-1]:.4f} (last step)")
+        print(f"  forecast_hit per layer (mean over steps) {[round(float(v), 3) for v in hits.mean(axis=0)]}; "
+              f"per step (mean over layers) {[round(float(v), 3) for v in hits.mean(axis=1)]}")
+        print(f"  run against run: max over layers of | |q|max on - off | per step {[f'{g:.2e}' for g in q_run_gap]}")
+        # from the same scores and warm start at every layer and step: the
+        # forecast's q against the plain bisection's (a third, checked run)
+        bal = balancers.get_balancer("bip")
+        solve = bal.score_adjust
+        gap_t = []
+
+        def checked(s, state, rcfg, **kw):
+            out = solve(s, state, rcfg, **kw)
+            q_off, _ = ref_bip.bip_dual_update_global(
+                s.detach(), state["q"], top_k=rcfg.top_k, n_iters=rcfg.bip_iters, token_mask=kw.get("token_mask"),
+                n_bisect=rcfg.n_bisect, fanout=rcfg.bisect_fanout, score_bounds=(0.0, 1.0))
+            gap_t.append((out[1]["q"] - q_off).abs().max())
+            return out
+
+        bal.score_adjust = checked
+        try:
+            run(with_routing(forecast=True, **glob), FORECAST_STEPS, want_k3=False)
+        finally:
+            del bal.score_adjust
+        gaps_same = [float(g) for g in gap_t]
+        res = 2.0 * 2.0 ** -cfg.routing.n_bisect  # the bracket width the bisection stops at, [-1, 1]
+        bound = cfg.routing.bip_iters * (res + 2.0 ** -22)  # + two fp32 ulps of x = s - p per iteration
+        print(f"  same scores and warm start, every layer and step ({len(gaps_same)} dual updates): max |q_forecast - "
+              f"q_plain| {max(gaps_same):.3e} (bound T·(2·2^-{cfg.routing.n_bisect} + 2^-22) = {bound:.3e})")
+        if max(gaps_same) > bound:
+            raise AssertionError(f"the forecast window moved q by {max(gaps_same):.3e} > {bound:.3e}")
+
+        print(f"[observability] watchdog: bip on K3, {WATCH_STEPS} healthy steps with guard_duals off and on, "
+              f"then {WATCH_STEPS} more from layer 0's q poisoned with NaN (watchdog on) against the same "
+              f"from layer 0's q set to zeros")
+        s_off, _ = run(cfg, WATCH_STEPS)
+        s_on, _ = run(with_routing(guard_duals=True), WATCH_STEPS)
+        healthy_equal, healthy_gap = leaf_gap(torch, s_off, s_on)
+        print(f"  healthy run, watchdog on against off: bitwise {healthy_equal} (max |diff| {healthy_gap:.3e})")
+        if not healthy_equal and not bare_equal:
+            print("  (two bare runs differ too: held to their difference)")
+        if not healthy_equal and (bare_equal or healthy_gap > gaps[2]):
+            raise AssertionError("the watchdog changed a healthy run")
+        s_on.router_states[0]["q"].fill_(float("nan"))
+        s_off.router_states[0]["q"].zero_()
+        sink = telemetry.MemorySink()
+        s_poison, l_poison = run(with_routing(guard_duals=True), WATCH_STEPS,
+                                 telemetry.TrainTelemetry(sink, flush_every=WATCH_STEPS), state=s_on, seed=1)
+        s_zero, l_zero = run(with_routing(guard_duals=True), WATCH_STEPS, state=s_off, seed=1)
+        reset_equal, reset_gap = leaf_gap(torch, s_poison, s_zero)
+        q0 = [round(float(np.asarray(r["q_abs_max_per_layer"])[0]), 5) for r in sink.records
+              if r["kind"] == "train_step"]
+        print(f"  poisoned step {WATCH_STEPS}: losses {[round(v, 4) for v in l_poison.losses]} (finite), layer 0's "
+              f"|q| max per step from the telemetry {q0}; the run equals the one from zeros: bitwise {reset_equal} "
+              f"(max |diff| {reset_gap:.3e})")
+        if not all(math.isfinite(v) for v in q0) or not all(math.isfinite(v) for v in l_poison.losses):
+            raise AssertionError("the watchdog did not reset the poisoned q")
+        if not reset_equal and (bare_equal or reset_gap > gaps[2]):
+            raise AssertionError("the reset q is not the fresh-layer (zeros) warm start")
+        del s_off, s_on, s_poison, s_zero
+        torch.cuda.empty_cache()
+
+        # -- 13.4 the serving window
+        model = Model(cfg, device="cuda")
+        params = model.init(seed=0)
+        eng = ContinuousBatchingEngine(model, params, n_slots=16, chunk_size=32, max_seq_len=64 + 16 + 1,
+                                       use_kernel=True, profile=SERVE_WINDOW,
+                                       profile_dir=os.path.join(tmp, "serve_profile"))
+        rng = np.random.default_rng(13)
+        for _ in range(16):
+            eng.submit(rng.integers(0, cfg.vocab_size, (int(rng.integers(16, 65)),)), 16, ignore_eos=True)
+        reset()
+        eng.run()
+        eng.close()
+        got = counts()
+        for k in ("K1", "K2"):
+            launches["serve"][k] += got[k]
+        if not (got["K1"] == got["K2"] == n_moe * eng.n_steps):
+            raise AssertionError(f"serving launched {got} over {eng.n_steps} steps")
+        lo, hi = SERVE_WINDOW
+        print(f"[observability] serving window {lo}:{hi}: 16 requests, {eng.n_steps} steps, "
+              f"ContinuousBatchingEngine(profile=({lo}, {hi}))")
+        spans, *_ = check_trace(eng.profiler.trace_path, ("serve/step",), ("K1", "K2"), "serving window")
+        if len(spans["serve/step"]) != hi - lo + 1:
+            raise AssertionError(f"{len(spans['serve/step'])} serve/step spans, expected {hi - lo + 1}")
+        del eng, model, params
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[observability] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1002,12 +1347,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import configs, data, robustness
-    from repro_torch.core import ref_bip
+    from repro_torch import configs, data, robustness, telemetry
+    from repro_torch.core import balancers, ref_bip
     from repro_torch.data import SyntheticBatchStream, make_batches
     from repro_torch.kernels import bip_admm, moe_gemm, nvcc
     from repro_torch.kernels import ops as kernel_ops
     from repro_torch.launch import balance_sweep, paper_repro
+    from repro_torch.launch import train as launch_train
+    from repro_torch.telemetry import metrics_report
     from repro_torch.models import Model, moe
     from repro_torch.optim import from_model_config, linear_warmup_cosine
     from repro_torch.serving import ContinuousBatchingEngine
@@ -1197,19 +1544,26 @@ def main() -> int:
     # -- 12. the balance matrix at full width: every registered method on
     # 16e and 64e, synthetic and real text
     matrix_launches = balance_matrix(torch, configs, balance_sweep, paper_repro)
+    torch.cuda.empty_cache()
+
+    # -- 13. observability and the last training flags at full width
+    obs = observability(torch, tcfg, (
+        Model, SyntheticBatchStream, init_train_state, train_loop, from_model_config, moe_gemm, bip_admm,
+        telemetry, metrics_report, launch_train, ContinuousBatchingEngine, balancers, ref_bip))
 
     record = []
     k1, k2 = "grouped_gated_ffn_in", "grouped_matmul"
     for name, line, use, times, shape, n_launches, max_err in (
-        (k1, 41, "forward, serving shape; launches: serving", timings[k1], serve_shape,
-         launches[k1], err[k1]),
-        (k1, 41, "forward, training shape; launches: training (phase 8) and phase 12's 16e synthetic "
-         "cells", train_timings[k1], TRAIN, train_launches[k1] + matrix_launches["16e"]["K1"], train_err[k1]),
-        (k2, 94, "forward, serving shape; launches: serving", timings[k2], serve_shape,
-         launches[k2], err[k2]),
-        (k2, 94, "forward, training shape; launches: training (phase 8) and phase 12's 16e synthetic "
-         "cells, all nine uses", train_timings[k2], TRAIN, train_launches[k2] + matrix_launches["16e"]["K2"],
-         train_err[k2]),
+        (k1, 41, "forward, serving shape; launches: serving (phases 4, 13)", timings[k1], serve_shape,
+         launches[k1] + obs["serve"]["K1"], err[k1]),
+        (k1, 41, "forward, training shape; launches: training (phase 8), phase 12's 16e synthetic "
+         "cells and phase 13", train_timings[k1], TRAIN,
+         train_launches[k1] + matrix_launches["16e"]["K1"] + obs["train"]["K1"], train_err[k1]),
+        (k2, 94, "forward, serving shape; launches: serving (phases 4, 13)", timings[k2], serve_shape,
+         launches[k2] + obs["serve"]["K2"], err[k2]),
+        (k2, 94, "forward, training shape; launches: training (phase 8), phase 12's 16e synthetic "
+         "cells and phase 13, all nine uses", train_timings[k2], TRAIN,
+         train_launches[k2] + matrix_launches["16e"]["K2"] + obs["train"]["K2"], train_err[k2]),
         (k1, 41, "forward, microbatch shape; launches: real-text training (phase 11) and phase 12's "
          "real-text cells, 2 microbatches", micro_timings[k1], MICRO,
          real_launches[k1] + matrix_launches["16e-micro"]["K1"], micro_err[k1]),
@@ -1233,7 +1587,8 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": lib_ms,
         })
-    for label, n_launches in (("16e", train_launches["bip_dual_update"] + matrix_launches["16e"]["K3"]),
+    for label, n_launches in (("16e", train_launches["bip_dual_update"] + matrix_launches["16e"]["K3"]
+                               + obs["train"]["K3"]),
                               ("16e-micro", real_launches["bip_dual_update"]
                                + matrix_launches["16e-micro"]["K3"]),
                               ("64e", train64_launches["bip_dual_update"] + matrix_launches["64e"]["K3"])):
@@ -1242,7 +1597,8 @@ def main() -> int:
             "name": "bip_dual_update",
             "use": f"the whole BIP dual update of one MoE layer, minimind-moe-{label} training "
                    f"(n, m, k, T, refine) = ({n}, {m}, {k}, {n_iters}, 1); launches: "
-                   f"{label} training and its phase-12 bip cells",
+                   f"{label} training and its phase-12 bip cells"
+                   + (" and phase 13" if label == "16e" else ""),
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bip_admm.cu",
             "replaces": "src/repro/kernels/bip_admm.py:43",

@@ -237,12 +237,17 @@ class BIPBalancer(Balancer):
                      local_shards=1):
         if axis_names:
             raise NotImplementedError(_NO_MESH)
+        n, m = s.shape
         q0 = state["q"]
         updates: State = {}
+        # dual-health telemetry route() folds into the metrics: values the
+        # solve already produced
+        tel: State = {}
         if cfg.sync == "global" and cfg.use_kernel and token_mask is None:
             # the reference's collective kernel path with no mesh axes: the
             # single-device kernel dual
             q = self._solve(s.detach(), q0, cfg)
+            corrected = s - q[None, :]
         elif cfg.sync == "global" or token_mask is not None:
             if cfg.use_kernel:  # only reachable with a token mask
                 _warn_once(
@@ -250,27 +255,47 @@ class BIPBalancer(Balancer):
                     "use_kernel=True has no masked (serving-padding) form; "
                     "running the reference masked dual update.",
                 )
-            if cfg.forecast and not cfg.use_kernel and "q_ema" in state:
-                raise NotImplementedError(
-                    "the bip dual forecaster (RouterConfig.forecast) is not ported yet"
-                )
+            # load forecaster: predict the pre-clamp order statistic t from
+            # its EMA and bracket it by the EMA'd error; the bisection checks
+            # the bracket in round 0 and ignores it where it is stale
+            use_forecast = cfg.forecast and not cfg.use_kernel and "q_ema" in state
+            window = None
+            if use_forecast:
+                half = cfg.forecast_margin * state["q_err"] + cfg.forecast_floor
+                window = (state["q_ema"] - half, state["q_ema"] + half)
             # scores are softmax/sigmoid outputs, so [0, 1] is a static bracket
-            q, _ = ref_bip.bip_dual_update_global(
+            q, _, t = ref_bip.bip_dual_update_global(
                 s.detach(), q0,
                 top_k=cfg.top_k, n_iters=cfg.bip_iters,
                 token_mask=token_mask,
                 n_bisect=cfg.n_bisect, fanout=cfg.bisect_fanout,
-                score_bounds=(0.0, 1.0),
+                score_bounds=(0.0, 1.0), window=window, with_stats=True,
             )
+            if use_forecast:
+                d = cfg.forecast_decay
+                err = torch.abs(t - state["q_ema"])
+                updates["q_ema"] = d * state["q_ema"] + (1.0 - d) * t
+                updates["q_err"] = d * state["q_err"] + (1.0 - d) * err
+                # forecast quality: mean |t - prediction| and the share of
+                # experts whose statistic landed inside the bracket
+                lo, hi = window
+                tel["forecast_err"] = torch.mean(err)
+                tel["forecast_hit"] = torch.mean(((t >= lo) & (t <= hi)).float())
+            corrected = s - q[None, :]
         elif local_shards > 1 and cfg.sync == "local":
-            raise NotImplementedError("local_shards > 1 is not ported yet")
+            # per-token-group duals (the reference's vmap over groups): one
+            # solve per group, K3 once per group on the card
+            s_grp = s.detach().reshape(local_shards, n // local_shards, m)
+            q_grp = torch.stack([self._solve(sg, q0, cfg) for sg in s_grp])  # (S, m)
+            corrected = (s.reshape(local_shards, -1, m) - q_grp[:, None, :]).reshape(n, m)
+            q = q_grp.mean(dim=0)  # replicated warm start
         else:
             q = self._solve(s.detach(), q0, cfg)
-        corrected = s - q[None, :]
+            corrected = s - q[None, :]
         updates["q"] = q
         if not cfg.bip_warm_start:
             updates["q"] = torch.zeros_like(q0)
-        return corrected, updates, {}
+        return corrected, updates, tel
 
 
 @register_balancer("expert_choice")

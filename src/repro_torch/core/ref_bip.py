@@ -85,6 +85,7 @@ def kth_largest_threshold(
     lo: Optional[Tensor] = None,
     hi: Optional[Tensor] = None,
     fanout: int = 1,
+    window: Optional[Tuple[Tensor, Tensor]] = None,
 ) -> Tensor:
     """(kth+1)-th largest along `dim` by fused multi-threshold bisection.
 
@@ -97,6 +98,13 @@ def kth_largest_threshold(
     2^-n_bisect: a converged round keeps its bounds (torch.where, so the
     loop never syncs with the host). Returns the bracket's upper end, which
     guarantees #{x > t} <= kth.
+
+    `window` is an optional (w_lo, w_hi) predicted bracket per batch element
+    (the bip dual forecaster's). Its two edges are counted by direct compare
+    beside round 0's fused count; where count(w_lo) > kth >= count(w_hi) and
+    w_lo < w_hi, round 0's bracket is intersected with it, elsewhere (a
+    stale window) it is ignored. The port's rounds run whether or not they
+    narrow anything, so a window changes the bracket, not the launches.
     """
     if lo is None:
         lo = torch.amin(x, dim=dim)
@@ -142,7 +150,17 @@ def kth_largest_threshold(
         return pts.gather(0, j)[0], pts.gather(0, j + 1)[0]
 
     pts = ladder(lo, hi)
-    lo, hi = subinterval(pts, fused_counts(pts))
+    new_lo, new_hi = subinterval(pts, fused_counts(pts))
+    if window is None:
+        lo, hi = new_lo, new_hi
+    else:  # round 0 carries the window's two validation probes
+        w_lo = torch.as_tensor(window[0], dtype=dt, device=dev).expand(rest)
+        w_hi = torch.as_tensor(window[1], dtype=dt, device=dev).expand(rest)
+        c_lo = (xm > w_lo[None]).sum(dim=0, dtype=torch.float32)
+        c_hi = (xm > w_hi[None]).sum(dim=0, dtype=torch.float32)
+        ok = (c_lo > kth) & (c_hi <= kth) & (w_lo < w_hi)
+        lo = torch.where(ok, torch.maximum(w_lo, new_lo), new_lo)
+        hi = torch.where(ok, torch.minimum(w_hi, new_hi), new_hi)
     for _ in range(max_rounds - 1):
         converged = torch.amax(hi - lo) <= target
         pts = ladder(lo, hi)
@@ -162,7 +180,9 @@ def bip_dual_update_global(
     n_bisect: int = 26,
     fanout: int = 1,
     score_bounds: Optional[Tuple[float, float]] = None,
-) -> Tuple[Tensor, Tensor]:
+    window: Optional[Tuple[Tensor, Tensor]] = None,
+    with_stats: bool = False,
+):
     """ADMM dual update over the real tokens by threshold bisection.
 
     The single-device form of the reference function of the same name:
@@ -171,8 +191,11 @@ def bip_dual_update_global(
     from the real-row count. `score_bounds` is a static (lo, hi) on the
     entries of `s` ((0, 1) for softmax scores) that brackets x = s - p by
     [lo - max(hi, 0), hi] with no data-dependent bound. An all-padding call
-    keeps q0. Returns (q, p). (The reference's forecast `window` and
-    `with_stats` are not ported yet.)
+    keeps q0. `window` is the forecaster's (w_lo, w_hi) bracket per expert,
+    validated in round 0 of every iteration's bisection
+    (`kth_largest_threshold`). Returns (q, p), or with `with_stats` (q, p,
+    t) with t the last iteration's pre-clamp order statistic (q = max(0, t)),
+    which the forecaster tracks.
     """
     n, m = s.shape
     dev = s.device
@@ -195,6 +218,7 @@ def bip_dual_update_global(
     q = q0.to(s.dtype)
     p = torch.zeros((n,), dtype=s.dtype, device=dev)
     zero = torch.zeros((), dtype=s.dtype, device=dev)
+    t = torch.zeros_like(q)
     for _ in range(n_iters):
         if top_k >= m:
             p = torch.zeros((n,), dtype=s.dtype, device=dev)
@@ -210,12 +234,14 @@ def bip_dual_update_global(
             lo = torch.amin(torch.where(real, x, torch.inf), dim=0)
             hi = torch.amax(torch.where(real, x, -torch.inf), dim=0)
         t = kth_largest_threshold(
-            x, cap_idx, dim=0, n_bisect=n_bisect, lo=lo, hi=hi, fanout=fanout
+            x, cap_idx, dim=0, n_bisect=n_bisect, lo=lo, hi=hi, fanout=fanout, window=window
         )
         t = torch.where(slack, zero, t)  # slack capacity -> price 0
         q = torch.clamp_min(t, 0.0)
     # an all-padding invocation (idle engine step) must not move the dual
     q = torch.where(n_real > 0, q, q0.to(s.dtype))
+    if with_stats:
+        return q, p, t
     return q, p
 
 

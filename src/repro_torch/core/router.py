@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import balancers, ref_bip
 from repro_torch.core.types import RouterConfig, RouterOutput, init_router_state
+from repro_torch.telemetry.trace import named_span
 
 Tensor = torch.Tensor
 
@@ -151,6 +152,9 @@ def route(
     logits: (n, m) router logits. state: {'q': (m,)} plus method leaves.
     token_mask: optional (n,) bool — serving padding rows are False; they
       still get selections but are excluded from every state update.
+    local_shards: > 1 (sync='local', bip) emulates per-shard duals in one
+      program: each of the contiguous token groups solves its own q and
+      the carried warm start is their mean.
     """
     n, m = logits.shape
     if m != cfg.n_experts:
@@ -165,8 +169,10 @@ def route(
     new_state = dict(state)
 
     if cfg.guard_duals:
-        # dual-health watchdog: any non-finite/runaway entry in the guarded
-        # keys resets them all to zeros; healthy carries pass bitwise
+        # dual-health watchdog: the guarded keys (q, and the bip forecaster's
+        # q_ema/q_err) are one coupled carry, so any non-finite/runaway
+        # entry in any of them resets them all to zeros; healthy carries
+        # pass bitwise
         gkeys = bal.guard_keys(state)
         stacked = torch.cat([state[k] for k in gkeys])
         _, healthy = ref_bip.sanitize_duals(stacked, cfg.dual_abs_limit)
@@ -175,21 +181,24 @@ def route(
         state = dict(new_state)
 
     global_axes = tuple(cfg.data_axes) if cfg.sync == "global" else ()
-    adjusted = bal.score_adjust(
-        s, state, cfg,
-        token_mask=token_mask, axis_names=global_axes, local_shards=local_shards,
-    )
+    with named_span("router/score_adjust"):
+        adjusted = bal.score_adjust(
+            s, state, cfg,
+            token_mask=token_mask, axis_names=global_axes, local_shards=local_shards,
+        )
     if len(adjusted) == 3:
         corrected, pre_updates, hook_telemetry = adjusted
     else:
         corrected, pre_updates = adjusted
         hook_telemetry = {}
     new_state.update(pre_updates)
-    w, idx = bal.select(s, corrected, cfg)
+    with named_span("router/select"):
+        w, idx = bal.select(s, corrected, cfg)
     aux = bal.aux_loss(s, idx, cfg, token_mask)
-    new_state.update(
-        bal.update_state(s, idx, state, cfg, token_mask=token_mask, axis_names=global_axes)
-    )
+    with named_span("router/update_state"):
+        new_state.update(
+            bal.update_state(s, idx, state, cfg, token_mask=token_mask, axis_names=global_axes)
+        )
     metrics = dict(balancers.router_metrics(bal, s, w, idx, cfg))
     metrics.update(hook_telemetry)
     metrics["q_abs_max"] = new_state["q"].abs().max()

@@ -60,13 +60,17 @@ def main(argv=None):
     ap.add_argument("--telemetry", default=None, metavar="PATH",
                     help="stream per-request lifecycle records + the final "
                          "SLO summary to this .jsonl/.csv file")
+    ap.add_argument("--profile", default=None, metavar="N:M",
+                    help="capture a torch.profiler trace of serve steps "
+                         "[N, M] into ./profile")
     args = ap.parse_args(argv)
 
     from repro_torch import configs, resolve_device
     from repro_torch.models import Model
     from repro_torch.serving import ContinuousBatchingEngine
-    from repro_torch.telemetry import open_sink
+    from repro_torch.telemetry import open_sink, profile_window
 
+    window = profile_window(args.profile)  # a bad spec fails before any work
     device = resolve_device(args.device)
     cfg = configs.reduced_for_smoke(args.arch) if args.reduced else configs.get(args.arch)
     model = Model(cfg, device=device)
@@ -96,6 +100,7 @@ def main(argv=None):
         shed_on_full=args.shed_on_full,
         step_delay=step_delay,
         sink=sink,
+        profile=window,
     )
     rng = np.random.default_rng(0)
     reqs = []
@@ -135,6 +140,9 @@ def main(argv=None):
         f"p99 {1e3 * slo['itl']['p99']:.1f} ms, "
         f"queue depth max {slo['queue_depth_max']}"
     )
+    eng.close()
+    if window is not None:
+        print(f"profile -> {eng.profiler.trace_path}")
     if sink is not None:
         sink.close()
         print(f"telemetry -> {args.telemetry}")

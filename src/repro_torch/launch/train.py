@@ -20,10 +20,22 @@ bit-exactly on the CPU. --prefetch N (0 disables) copies batches to the
 GPU ahead of their step from pinned memory on a side stream.
 
 The expert FFN and the BIP dual update run in the CUDA kernels
-(use_kernel=True). It prints one line per --log-every steps and, last, the
-reference launcher's summary JSON (losses, AvgMaxVio/SupMaxVio, step
-times, and test_ppl on 4 held-out synthetic batches or, with --data,
-train_corpus_ppl on 4 batches of the training corpus).
+(use_kernel=True); --sync global switches the dual to the threshold
+bisection (the reference's single-device sync='global' numerics, K3 off,
+the expert FFN still on K1/K2), which --forecast warm-starts. It prints
+one line per --log-every steps and, last, the reference launcher's summary
+JSON (losses, AvgMaxVio/SupMaxVio, step times, and test_ppl on 4 held-out
+synthetic batches or, with --data, train_corpus_ppl on 4 batches of the
+training corpus).
+
+Observability: --telemetry run.jsonl streams one record per step
+(per-layer expert load histograms, MaxVio, dual health, guard events)
+from a device ring drained every --flush-every steps; summarize it with
+`python -m repro_torch.telemetry.metrics_report run.jsonl`. --profile N:M
+writes a torch.profiler Chrome trace of steps N..M into ./profile.
+The reference's mesh and pod flags (--mesh, --production, --multi-pod,
+--coordinator, --num-hosts, --host-id) are not ported (ROADMAP.md, queue
+1, item 7).
 """
 from __future__ import annotations
 
@@ -34,8 +46,6 @@ import json
 import os
 import shutil
 import sys
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1: training deferrals)"
 
 
 def _tokenizer(cfg, args, shards):
@@ -95,6 +105,22 @@ def main(argv=None):
     ap.add_argument("--strategy", "--method", dest="strategy", default=None,
                     help="routing strategy: any name in the port's balancer registry")
     ap.add_argument("--bip-iters", type=int, default=None)
+    ap.add_argument("--sync", default=None, choices=["local", "global"],
+                    help="BIP dual sync: on one device 'global' switches the dual "
+                         "solver to the threshold/bisection form (the reference's "
+                         "mesh numerics, K3 off; the expert FFN stays on K1/K2)")
+    ap.add_argument("--n-bisect", type=int, default=None,
+                    help="bits of bisection resolution for the sync='global' "
+                         "dual order statistic (default 26)")
+    ap.add_argument("--bisect-fanout", type=int, default=None,
+                    help="thresholds probed per fused bisection round "
+                         "(default 32 -> 6 rounds)")
+    ap.add_argument("--forecast", action="store_true",
+                    help="carry the dual forecaster (EMA of the order "
+                         "statistic) in router state and warm-start each "
+                         "bisection with its predicted bracket")
+    ap.add_argument("--forecast-decay", type=float, default=None)
+    ap.add_argument("--forecast-margin", type=float, default=None)
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -103,6 +129,8 @@ def main(argv=None):
                     help="microbatches per step (gradient accumulation)")
     ap.add_argument("--reduced", action="store_true",
                     help="train the reduced (smoke-scale) variant of --arch")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 compute (master params/moments stay fp32)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out-json", default=None, help="write the run summary to this JSON file")
     ap.add_argument("--device", default="cuda", help="'cpu' runs without a GPU")
@@ -140,26 +168,32 @@ def main(argv=None):
                          "'flaky_stream@at=2'; see repro_torch.robustness.faults")
     ap.add_argument("--io-retries", type=int, default=3,
                     help="consecutive shard open/read failures retried before the loader raises")
-    # the reference's flags that the port refuses until they are ported
-    ap.add_argument("--telemetry", default=None, metavar="PATH", help=f"training telemetry {_NOT_PORTED}")
-    ap.add_argument("--profile", default=None, metavar="N:M", help=f"the profiler window {_NOT_PORTED}")
     ap.add_argument("--guard-duals", action="store_true",
-                    help=f"the router-dual watchdog in training {_NOT_PORTED}")
-    ap.add_argument("--forecast", action="store_true",
-                    help=f"the bip forecaster windows {_NOT_PORTED}")
+                    help="router dual-health watchdog: reset a layer's "
+                         "carried q / forecaster EMAs to safe init when "
+                         "non-finite or runaway")
+    # observability (DESIGN.md §Observability)
+    ap.add_argument("--telemetry", default=None, metavar="PATH",
+                    help="stream per-step metric records (per-layer expert "
+                         "load histograms, MaxVio, dual health, guard "
+                         "events) to this .jsonl/.csv file; summarize with "
+                         "`python -m repro_torch.telemetry.metrics_report PATH`")
+    ap.add_argument("--flush-every", type=int, default=10,
+                    help="telemetry ring window: steps buffered on the device "
+                         "between asynchronous host drains")
+    ap.add_argument("--profile", default=None, metavar="N:M",
+                    help="capture a torch.profiler trace of train steps [N, M] "
+                         "into ./profile (Chrome trace format)")
     args = ap.parse_args(argv)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
-    if args.telemetry:
-        raise NotImplementedError(f"training telemetry (--telemetry) {_NOT_PORTED}")
-    if args.profile:
-        raise NotImplementedError(f"the profiler window (--profile) {_NOT_PORTED}")
 
     from repro_torch import configs, resolve_device
     from repro_torch.core import get_balancer
     from repro_torch.data import ShardedTextLoader, SyntheticBatchStream, make_batches, resolve_shards
     from repro_torch.models import Model
     from repro_torch.robustness import FaultPlan, GuardConfig
+    from repro_torch.telemetry import Profiler, TrainTelemetry, open_sink, profile_window
     from repro_torch.training import evaluate_ppl, train_loop
 
     if args.strategy is not None:
@@ -167,17 +201,30 @@ def main(argv=None):
             get_balancer(args.strategy)
         except ValueError as e:
             ap.error(str(e))
+    window = profile_window(args.profile)  # a bad spec fails before any work
     device = resolve_device(args.device)
     cfg = configs.reduced_for_smoke(args.arch) if args.reduced else configs.get(args.arch)
+    sync = args.sync or cfg.routing.sync
     routing = dataclasses.replace(
         cfg.routing,
         strategy=args.strategy or cfg.routing.strategy,
         bip_iters=args.bip_iters or cfg.routing.bip_iters,
-        use_kernel=True,
-        guard_duals=args.guard_duals or cfg.routing.guard_duals,
+        sync=sync,
+        n_bisect=args.n_bisect or cfg.routing.n_bisect,
+        bisect_fanout=args.bisect_fanout or cfg.routing.bisect_fanout,
         forecast=args.forecast or cfg.routing.forecast,
+        forecast_decay=cfg.routing.forecast_decay if args.forecast_decay is None else args.forecast_decay,
+        forecast_margin=cfg.routing.forecast_margin if args.forecast_margin is None else args.forecast_margin,
+        guard_duals=args.guard_duals or cfg.routing.guard_duals,
+        # without a mesh, sync='global' is the bisection dual (K3 off, K1/K2 on)
+        use_kernel=sync != "global",
+        ffn_kernel=True,
     )
     cfg = dataclasses.replace(cfg, routing=routing)
+    if args.bf16:
+        import torch
+
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
     model = Model(cfg, device=device)
     print(f"training {cfg.name} [{cfg.family}] method={cfg.routing.strategy} "
           f"sync={cfg.routing.sync} device={device} micro={args.micro} "
@@ -196,12 +243,34 @@ def main(argv=None):
         batches = SyntheticBatchStream(cfg, args.batch, args.seq_len, args.steps, device=device)
         if faults is not None:
             batches = faults.wrap_stream(batches)
-    state, log = train_loop(
-        model, batches, lr=args.lr, total_steps=args.steps, log_every=args.log_every,
-        microbatches=args.micro, ckpt_dir=args.ckpt_dir,
-        ckpt_every=args.ckpt_every or (args.steps if args.ckpt_dir else 0),
-        resume=args.resume, guard=guard, faults=faults,
-    )
+    telemetry = sink = None
+    if args.telemetry or window:
+        sink = open_sink(args.telemetry)
+        telemetry = TrainTelemetry(
+            sink=sink,
+            flush_every=args.flush_every,
+            run_meta={
+                "arch": cfg.name,
+                "strategy": cfg.routing.strategy if cfg.is_moe else None,
+                "sync": cfg.routing.sync if cfg.is_moe else None,
+                "steps": args.steps,
+                "flush_every": args.flush_every,
+            },
+            profiler=Profiler(window) if window else None,
+        )
+    try:
+        state, log = train_loop(
+            model, batches, lr=args.lr, total_steps=args.steps, log_every=args.log_every,
+            microbatches=args.micro, ckpt_dir=args.ckpt_dir,
+            ckpt_every=args.ckpt_every or (args.steps if args.ckpt_dir else 0),
+            resume=args.resume, guard=guard, faults=faults, telemetry=telemetry,
+        )
+    finally:
+        if sink is not None:
+            sink.close()
+            print(f"telemetry -> {args.telemetry}")
+    if telemetry is not None and telemetry.profiler is not None and telemetry.profiler.trace_path:
+        print(f"profile -> {telemetry.profiler.trace_path}")
     if args.data:
         # no held-out split: the eval pass re-reads the training shards with
         # another shuffle seed, so it is labelled train_corpus_ppl

@@ -16,6 +16,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import make_dispatch_plan, route
 from repro_torch.core.types import RouterConfig
 from repro_torch.models.common import _act, _randn
+from repro_torch.telemetry.trace import named_span
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -81,10 +82,13 @@ def moe_ffn_local(
 
     logits = torch.einsum("nd,dm->nm", x.float(), params["w_router"])
     out = route(logits, router_state, rcfg, token_mask=token_mask)
-    plan = make_dispatch_plan(out.expert_index, m, cap, token_mask)
-    buf = plan.pack(x)  # (m, cap, d)
-    y = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"], buf, cfg)
-    y_tok = plan.combine(y, out.combine_weights)
+    with named_span("moe/dispatch"):
+        plan = make_dispatch_plan(out.expert_index, m, cap, token_mask)
+        buf = plan.pack(x)  # (m, cap, d)
+    with named_span("moe/gemm"):
+        y = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"], buf, cfg)
+    with named_span("moe/combine"):
+        y_tok = plan.combine(y, out.combine_weights)
 
     mets = out.metrics
     if token_mask is not None:

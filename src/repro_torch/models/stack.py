@@ -106,7 +106,8 @@ def apply_layer(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor, Dict]:
     """One layer over whole sequences. Returns (x, new_router_state,
     aux_loss, metrics); MoE layers report 'max_vio', 'load' and the router's
-    'dropped_frac_cap1' and 'q_abs_max', as the reference's local path."""
+    'dropped_frac_cap1' and 'q_abs_max' (and, with the bip forecaster,
+    'forecast_err' / 'forecast_hit'), as the reference's local path."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     mets: Dict[str, torch.Tensor] = {}
     b, s, d = x.shape
@@ -129,7 +130,7 @@ def apply_layer(
         x = x + h
         aux = aux + aux_moe
         mets = {"max_vio": moe_mets["max_vio"], "load": moe_mets["load"]}
-        for k in ("dropped_frac_cap1", "q_abs_max"):
+        for k in ("dropped_frac_cap1", "q_abs_max", "forecast_err", "forecast_hit"):
             if k in moe_mets:
                 mets[k] = moe_mets[k]
     return x, router_state, aux, mets

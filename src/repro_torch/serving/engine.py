@@ -25,6 +25,7 @@ from repro_torch.core import get_balancer
 from repro_torch.models.model import Model
 from repro_torch.serving.scheduler import DECODE, PREFILL, Request, Scheduler
 from repro_torch.telemetry.slo import ServingTelemetry
+from repro_torch.telemetry.trace import Profiler, trace_span
 
 
 class ContinuousBatchingEngine:
@@ -54,6 +55,8 @@ class ContinuousBatchingEngine:
         step_delay: float = 0.0,
         clock=time.perf_counter,
         sink=None,
+        profile=None,
+        profile_dir: str = "profile",
     ):
         cfg = model.cfg
         if use_kernel is not None and cfg.is_moe and use_kernel != cfg.routing.use_kernel:
@@ -95,6 +98,13 @@ class ContinuousBatchingEngine:
         self.telemetry = ServingTelemetry(
             cfg.routing.n_experts if cfg.is_moe else 1, sink=sink
         )
+        # `profile` = (lo, hi): the serve steps captured with torch.profiler
+        self.profiler = Profiler(profile, log_dir=profile_dir) if profile is not None else None
+
+    def close(self) -> None:
+        """Stop an in-flight profiler capture (closing the sink is the caller's job)."""
+        if self.profiler is not None:
+            self.profiler.close()
 
     # ------------------------------------------- telemetry views
 
@@ -188,6 +198,8 @@ class ContinuousBatchingEngine:
         submit, so every request's outcome is reported exactly once."""
         if self.step_delay > 0:
             time.sleep(self.step_delay)  # slow_step fault injection
+        if self.profiler is not None:
+            self.profiler.step(self.telemetry.n_steps)
         now = self.clock()
         dropped = [
             self._observe(r)
@@ -215,7 +227,8 @@ class ContinuousBatchingEngine:
                 tokens[i, 0] = req.output[-1]
                 lengths[i] = 1
                 plan.append((i, slot, DECODE, 1))
-        nxt, mets = self._serve_step(tokens, lengths)
+        with trace_span("serve/step"):
+            nxt, mets = self._serve_step(tokens, lengths)
         self.telemetry.on_step(
             mets,
             n_prefill=sum(n for _, _, kind, n in plan if kind == PREFILL),

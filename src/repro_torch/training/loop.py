@@ -27,14 +27,16 @@ compute dtype at its use site, so gradients arrive in fp32.
   async_ckpt=)` saves the full TrainState through `checkpoint.store` in the
   reference's npz layout, with the data stream's cursor beside it, and
   resumes bit-exactly on the CPU.
+* **Telemetry** - `make_train_step(telemetry=)` / `train_loop(telemetry=)`
+  write each step's metrics into a `telemetry.TrainTelemetry` ring on the
+  device after the step and drain it asynchronously to a sink; the state
+  trajectory is bitwise the one without it. The step's phases carry the
+  reference's profiler span names ('train/fwd_bwd', 'train/apply').
 
 Differences from the reference, by design of an eager port: the AdamW
 update is in place (params and moments are updated under torch.no_grad();
 there is no donation to ask for), and the step's controls are host values.
-Not ported yet (ROADMAP.md, queue 1): training telemetry, the profiler
-window, the router-dual watchdog in training (`routing.guard_duals`), the
-bip forecaster windows (`routing.forecast`) and everything on a mesh;
-`make_train_step` refuses the two routing flags.
+Everything on a mesh is not ported yet (ROADMAP.md, queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -54,8 +56,8 @@ from repro_torch.models.model import Model
 from repro_torch.optim import adamw as _adamw
 from repro_torch.optim.schedules import linear_warmup_cosine
 from repro_torch.robustness.guards import ROLLBACK, GuardConfig, TrainGuard, TrainingDiverged
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1: training deferrals)"
+from repro_torch.telemetry.metrics import TrainTelemetry
+from repro_torch.telemetry.trace import named_span
 
 # control-vector layout of the guarded train step (the reference's): a (3,)
 # float vector of per-step scalars the host sets
@@ -128,9 +130,17 @@ def make_train_step(
     *,
     microbatches: int = 1,
     guarded: bool = False,
+    telemetry: Optional[TrainTelemetry] = None,
 ):
     """Returns train_step(state, batch) -> (state, metrics), or with
     `guarded=True` train_step(state, batch, controls) (see CTRL_*).
+
+    `telemetry` (a TrainTelemetry) instruments the step as the reference's
+    compiled step: it takes two more arguments, the metric ring and the
+    step index, and returns (state, metrics, ring). The ring's layout is
+    built from the first step's metrics (a None ring then means the
+    telemetry's own); after each step its metrics are written into the
+    ring (`MetricStream.accumulate`, no host sync).
 
     The step updates `state` in place and returns it; metrics stay on the
     device ('loss', 'ce_loss', 'aux_loss', 'perplexity', 'grad_norm', 'lr',
@@ -138,20 +148,16 @@ def make_train_step(
     unguarded step never waits for the device; the guarded one reads
     'step_ok' once, after every launch of the step is issued. With
     microbatches=k the batch's rows must divide by k (ValueError)."""
-    routing = model.cfg.routing
-    if routing.guard_duals:
-        raise NotImplementedError(f"the router-dual watchdog in training (--guard-duals) {_NOT_PORTED}")
-    if routing.forecast:
-        raise NotImplementedError(f"the bip forecaster windows (--forecast) {_NOT_PORTED}")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
 
     def fwd_bwd(params, leaves, batch, router, inject_nan):
-        loss, (router, mets) = model.loss_fn(params, batch, router)
-        if inject_nan:
-            # fault seam (robustness/faults.NanGrad): grads = NaN * dL
-            loss = loss * float("nan")
-        grads = torch.autograd.grad(loss, leaves)
+        with named_span("train/fwd_bwd"):
+            loss, (router, mets) = model.loss_fn(params, batch, router)
+            if inject_nan:
+                # fault seam (robustness/faults.NanGrad): grads = NaN * dL
+                loss = loss * float("nan")
+            grads = torch.autograd.grad(loss, leaves)
         mets = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in mets.items()}
         mets["loss"] = loss.detach()
         return grads, router, mets
@@ -189,8 +195,9 @@ def make_train_step(
         guard = None
         if controls is not None:
             guard = torch.isfinite(mets["loss"]) & (not force_skip)
-        _, _, info = _adamw.adamw_update(list(grads), state.opt_state, state.params, lr, opt_cfg,
-                                         guard=guard, decay=decay)
+        with named_span("train/apply"):
+            _, _, info = _adamw.adamw_update(list(grads), state.opt_state, state.params, lr, opt_cfg,
+                                             guard=guard, decay=decay)
         mets.update(info)
         if controls is None:
             state.router_states = new_router
@@ -203,15 +210,22 @@ def make_train_step(
         return state, mets
 
     if not guarded:
-        def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        def step(state: TrainState, batch: Dict[str, torch.Tensor]):
             return run(state, batch, None)
+    else:
+        def step(state: TrainState, batch: Dict[str, torch.Tensor], controls):
+            return run(state, batch, controls)
+    if telemetry is None:
+        return step
 
-        return train_step
+    def instrumented_step(*args):
+        *inner, buf, step_idx = args
+        new_state, mets = step(*inner)
+        telemetry.ensure_built(mets)
+        buf = telemetry.stream.accumulate(telemetry.buf if buf is None else buf, mets, step_idx)
+        return new_state, mets, buf
 
-    def guarded_step(state: TrainState, batch: Dict[str, torch.Tensor], controls):
-        return run(state, batch, controls)
-
-    return guarded_step
+    return instrumented_step
 
 
 class TrainLog:
@@ -303,6 +317,7 @@ def train_loop(
     async_ckpt: bool = True,
     guard=None,
     faults=None,
+    telemetry: Optional[TrainTelemetry] = None,
 ) -> Tuple[TrainState, TrainLog]:
     """Host loop on one device: the reference's schedule wiring (AdamW from
     the model config, linear warmup then cosine to 10% of `lr`), stopping
@@ -334,12 +349,17 @@ def train_loop(
     * SIGTERM (installed on the main thread when checkpointing) writes one
       final SYNCHRONOUS checkpoint and returns; the handler is restored on
       exit.
+    * `telemetry` (a `telemetry.TrainTelemetry`) gets each step's metrics
+      in its device ring, the step's wall time, the guard ladder's and the
+      loop's events as they happen (each once, in order), and drives its
+      profiler window; its partial last window is drained in the `finally`
+      block. Closing the sink is the caller's job.
     """
     opt_cfg = _adamw.from_model_config(model.cfg)
-    # the step is built before any data is read: it refuses what is not ported
+    # the step is built before any data is read: a bad microbatch count fails first
     guarded = guard is not None or (faults is not None and faults.get("nan_grad") is not None)
     step_fn = make_train_step(model, opt_cfg, linear_warmup_cosine(lr, warmup_steps, total_steps),
-                              microbatches=microbatches, guarded=guarded)
+                              microbatches=microbatches, guarded=guarded, telemetry=telemetry)
 
     manager = None
     if ckpt_dir is not None:
@@ -382,6 +402,20 @@ def train_loop(
 
     log = TrainLog()
     saved_at = -1
+    emitted = {"n": 0}
+
+    def event(ev: Dict[str, Any]) -> None:
+        if telemetry is not None:
+            telemetry.event(ev)
+
+    def stream_events() -> None:
+        # forward the guard ladder's new events to the telemetry sink,
+        # exactly once each, in order
+        if telemetry is None or tguard is None:
+            return
+        while emitted["n"] < len(tguard.events):
+            telemetry.event(dict(tguard.events[emitted["n"]]))
+            emitted["n"] += 1
 
     def save(block: bool) -> None:
         path = manager.save_train_state(
@@ -390,7 +424,9 @@ def train_loop(
         if faults is not None and faults.get("ckpt_corrupt") is not None:
             manager.wait()  # the file must be fully written before corrupting
             if faults.corrupt_after_save(path):
-                log.events.append({"step": i, "kind": "ckpt_corrupted", "path": path})
+                ev = {"step": i, "kind": "ckpt_corrupted", "path": path}
+                log.events.append(ev)
+                event(ev)
 
     try:
         it = iter(batches)
@@ -408,18 +444,28 @@ def train_loop(
             if i < start_step:
                 continue  # resumed plain iterable: replay-skip the consumed prefix
             batch = batch_to_torch(batch, model.device)
+            if telemetry is not None:
+                telemetry.before_step(i)  # the profiler window, if configured
             t0 = time.perf_counter()
+            args = (state, batch)
             if guarded:
                 force_skip, lr_scale = tguard.controls(i)
                 inject = faults is not None and faults.nan_fires(i)
-                state, mets = step_fn(state, batch, (float(inject), float(force_skip), lr_scale))
+                args += ((float(inject), float(force_skip), lr_scale),)
+            if telemetry is not None:
+                state, mets, _ = step_fn(*args, telemetry.buf, i)
             else:
-                state, mets = step_fn(state, batch)
+                state, mets = step_fn(*args)
             loss = float(mets["loss"])  # wait for the step's device work
             dt = time.perf_counter() - t0
+            if telemetry is not None:
+                telemetry.note_step_time(i, dt)
+                # before the guard observes: a rolled-back step's row is kept
+                telemetry.after_step(i)
             if guarded:
                 action = tguard.observe(i, loss, bool(mets["step_ok"]))  # raises on RAISE
                 log.events = tguard.events
+                stream_events()
                 if action == ROLLBACK:
                     r_step, state = manager.restore_train_state(model.cfg, device=model.device)
                     ds = manager.restore_data_state(r_step)
@@ -434,6 +480,8 @@ def train_loop(
                     it = iter(batches)
                     log.truncate(r_step - loop_start)
                     log.events = tguard.events
+                    stream_events()
+                    event({"step": i, "kind": "rollback_replay", "to_step": r_step})
                     start_step = 0  # a fallback restore may predate `resume`
                     i = r_step - 1
                     if log_every:
@@ -449,11 +497,15 @@ def train_loop(
             if sig_flag["term"]:
                 save(block=True)  # preemption: make the state durable NOW
                 saved_at = i
-                log.events.append({"step": i, "kind": "sigterm_checkpoint"})
+                ev = {"step": i, "kind": "sigterm_checkpoint"}
+                log.events.append(ev)
+                event(ev)
                 break
         if manager is not None and ckpt_every and saved_at != i:
             save(block=not async_ckpt)  # final state, off-boundary stop
     finally:
+        if telemetry is not None:
+            telemetry.finish()  # the partial window and the copies in flight
         if hook_signal:
             signal.signal(signal.SIGTERM, prev_handler)
         if manager is not None:

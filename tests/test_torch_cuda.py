@@ -1,7 +1,8 @@
 """The port on the GPU: the CUDA kernels against their plain versions, the
 serving engine and the train step launching them, the prefetcher's copies
 to the card, the checkpoint's on-device snapshot, and the phi / lpr /
-expert_choice balancers (expert-choice's sentinel slots included). Needs an NVIDIA GPU and
+expert_choice balancers (expert-choice's sentinel slots included), and the
+training telemetry ring and profiler window. Needs an NVIDIA GPU and
 nvcc; skips elsewhere. Imports no JAX, so it runs where only the port is
 installed:
 
@@ -530,3 +531,96 @@ def test_expert_choice_trains_full_width_through_the_kernels(cuda_device):
     assert bip_admm.bip_dual_update.launches == 0
     assert all(np.isfinite(losses))
     assert float(mets["max_vio_per_layer"].max()) == 0.0
+
+
+def _telemetry_run(cfg, steps, telemetry=None, seed=0):
+    from repro_torch.data import SyntheticBatchStream
+    from repro_torch.training import train_loop
+
+    model = Model(cfg)
+    stream = SyntheticBatchStream(cfg, 4, 64, steps, seed=seed, device="cuda")
+    return train_loop(model, stream, lr=1e-3, warmup_steps=1, total_steps=steps, telemetry=telemetry)
+
+
+def test_telemetry_is_bitwise_transparent_on_the_card(cuda_device):
+    """5 reduced-width steps through K1/K2/K3, with and without the device
+    ring (flush_every 2: two drains and a partial window): every param,
+    moment, router state and loss bitwise equal; one record per step with
+    integer loads summing to n·k per layer."""
+    from repro_torch.optim.adamw import tree_paths
+    from repro_torch.telemetry import MemorySink, TrainTelemetry
+
+    cfg = _reduced_kernel_cfg()
+    s0, l0 = _telemetry_run(cfg, 5)
+    sink = MemorySink()
+    s1, l1 = _telemetry_run(cfg, 5, TrainTelemetry(sink, flush_every=2))
+    assert l0.losses == l1.losses
+
+    def leaves(s):
+        return tree_paths({"p": s.params, "mu": s.opt_state["mu"], "nu": s.opt_state["nu"],
+                           "r": s.router_states})
+
+    for (path, a), (_, b) in zip(leaves(s0), leaves(s1)):
+        assert torch.equal(a, b), path
+    recs = [r for r in sink.records if r["kind"] == "train_step"]
+    assert [r["step"] for r in recs] == list(range(5))
+    k = cfg.routing.top_k
+    for r in recs:
+        load = np.asarray(r["load_per_layer"])
+        assert load.dtype.kind == "i" and (load.sum(axis=1) == 4 * 64 * k).all()
+        assert np.isclose(r["ce_loss"], l0.losses[r["step"]])
+
+
+def test_ring_writes_and_drains_without_a_host_sync(cuda_device):
+    """MetricStream.accumulate and TrainTelemetry.after_step (the drain's
+    event records, the side-stream copy into pinned memory, the older
+    window's materialization) run under set_sync_debug_mode('error')."""
+    from repro_torch.telemetry import MemorySink, TrainTelemetry
+
+    cfg = _reduced_kernel_cfg()
+    model = Model(cfg)
+    opt = from_model_config(cfg)
+    state = init_train_state(model, 0, opt)
+    step = make_train_step(model, opt, constant(1e-3))
+    sink = MemorySink()
+    tel = TrainTelemetry(sink, flush_every=2)
+    for i, batch in enumerate(make_batches(cfg, 4, 64, 7, device=cuda_device)):
+        state, mets = step(state, batch)
+        float(mets["loss"])
+        tel.ensure_built(mets)
+        assert tel.buf.f_host.is_pinned() and tel.buf.f.is_cuda
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tel.stream.accumulate(tel.buf, mets, i)
+            tel.after_step(i)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if i == 4:  # windows [0, 1] and [2, 3] drained, the first materialized
+            assert [r["step"] for r in sink.records] == [0, 1]
+    tel.finish()
+    assert [r["step"] for r in sink.records] == list(range(7))
+    last = sink.records[-1]
+    assert np.isclose(last["ce_loss"], float(mets["ce_loss"]))
+    assert np.array_equal(last["load_per_layer"], mets["load_per_layer"].cpu().numpy())
+
+
+def test_profiler_window_names_the_kernels_and_spans(cuda_device, tmp_path):
+    """A --profile window of one full-width step (bf16 compute, batch 4 x
+    64) on the card: the Chrome trace names K1, K2 and K3 and the
+    reference's span names, and holds one step."""
+    from repro_torch.telemetry import Profiler, TrainTelemetry
+
+    full = configs.get("minimind_moe_16e")
+    cfg = dataclasses.replace(full, routing=dataclasses.replace(full.routing, use_kernel=True))
+    prof = Profiler((1, 1), log_dir=str(tmp_path))
+    _telemetry_run(cfg, 3, TrainTelemetry(None, flush_every=2, profiler=prof))
+    import json
+
+    events = json.load(open(prof.trace_path))["traceEvents"]
+    kernels = " ".join(e["name"] for e in events if e.get("cat") == "kernel")
+    for name in ("wgmma_gemm_kernel<true", "wgmma_gemm_kernel<false", "bip_dual_update_kernel"):
+        assert name in kernels, name
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]  # host-side ranges
+    for name in ("train/fwd_bwd", "train/apply", "router/score_adjust", "moe/gemm", "telemetry/accumulate"):
+        assert name in spans, name
+    assert spans.count("train/fwd_bwd") == 1

@@ -150,8 +150,9 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     subpackages = {f.parent.name for f in files}
-    assert {"data", "checkpoint", "robustness", "training", "kernels"} <= subpackages
-    for name in ("tokenizer", "packing", "loader", "prefetch", "store", "guards", "faults"):
+    assert {"data", "checkpoint", "robustness", "training", "kernels", "telemetry"} <= subpackages
+    for name in ("tokenizer", "packing", "loader", "prefetch", "store", "guards", "faults",
+                 "metrics", "metrics_report", "trace"):
         assert any(f.stem == name for f in files), name
     bad = []
     for f in files:
