@@ -69,8 +69,7 @@ class RoutingSpec:
 
 @dataclasses.dataclass(frozen=True)
 class SSMSpec:
-    """Mamba2 / SSD block settings (carried for schema parity; the port
-    does not run mamba layers yet)."""
+    """Mamba2 / SSD block settings (models/mamba2.py)."""
 
     d_state: int = 64
     d_conv: int = 4

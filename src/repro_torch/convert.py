@@ -4,7 +4,10 @@ reference package's layout and the port's, both ways.
 The reference keeps each layer-kind position j of the period stacked along
 a leading group axis (`params['stack']['blocks'][j]`, n_groups long, +1 for
 a remainder position); the port keeps one dict per layer in layer order.
-Layer i is group i // period of position i % period.
+Layer i is group i // period of position i % period. The encdec encoder's
+layers are one stack over n_enc_layers there (`params['encoder']['layers']`)
+and a list here; the zamba2 shared block (`params['stack']['shared']`),
+`frontend_proj` and the untied head `embed.unembed` are one leaf set in both.
 
     params_from_numpy(tree, cfg, device)        reference params -> port params
     router_states_from_numpy(states, cfg, dev)  reference states -> port states
@@ -15,6 +18,7 @@ Layer i is group i // period of position i % period.
     stack_blocks(layers, cfg)                   inverse of unstack_blocks
     decay_mask(params)                          leaf path -> decayed by AdamW, as in the
                                                 reference's stacked layout
+    params_to_tree(params, cfg)                 port params -> the reference's tree
     train_state_to_tree(state, cfg)             port TrainState -> the reference's
                                                 {'params', 'opt_state', 'router_states'}
 
@@ -89,33 +93,58 @@ def stack_blocks(layers: List[Any], cfg: ModelConfig) -> List[Any]:
     ]
 
 
+# leaves under these carry a leading layer axis in the reference's layout
+_STACKED = ("stack.layers[", "encoder.layers[")
+_TOP_KEYS = {"embed", "stack", "final_norm", "encoder", "frontend_proj"}
+
+
 def decay_mask(params) -> Dict[str, bool]:
     """AdamW's weight-decay mask, keyed by leaf path (`optim.adamw.tree_paths`).
 
     The reference decays a leaf when it has ndim >= 2 in ITS layout, where
-    every leaf under the per-layer blocks carries the leading group axis
-    that `stack_blocks` adds: a per-layer (d,) norm scale is (G, d) there
-    and is decayed. Leaves outside the stack count as they are (the
-    embedding is decayed, `final_norm` is not)."""
+    every leaf of the decoder's per-layer blocks and of the encoder's layers
+    carries a leading layer axis (`stack_blocks`; the encoder is stacked
+    over n_enc_layers): a per-layer (d,) norm scale is (G, d) there and is
+    decayed. Leaves outside them count as they are: the embedding and the
+    zamba2 shared block's matrices are decayed, `final_norm`, the encoder's
+    final norm and the shared block's norm scales are not."""
     from repro_torch.optim.adamw import tree_paths  # lazy: optim imports nothing of the models
 
     return {
-        path: leaf.dim() + (1 if path.startswith("stack.layers[") else 0) >= 2
+        path: leaf.dim() + (1 if path.startswith(_STACKED) else 0) >= 2
         for path, leaf in tree_paths(params)
     }
 
 
+def _check_keys(tree) -> None:
+    unknown = set(tree) - _TOP_KEYS
+    if unknown:
+        raise NotImplementedError(f"params with entries {sorted(unknown)} are not ported")
+
+
 def params_to_tree(params, cfg: ModelConfig):
     """The port's params (or a tree shaped like them: the Adam moments) ->
-    the reference's params tree, every leaf a new tensor on its device."""
-    if set(params) != {"embed", "stack", "final_norm"}:
-        raise NotImplementedError(f"params with entries {sorted(params)} are not ported yet")
+    the reference's params tree, every leaf a new tensor on its device:
+    decoder layers into per-position group stacks, encoder layers stacked
+    along a leading layer axis, the shared block as it is."""
+    _check_keys(params)
     clone = lambda t: t.detach().clone()  # noqa: E731
-    return {
+    tree = {
         "embed": _map(params["embed"], clone),
         "stack": {"blocks": stack_blocks(params["stack"]["layers"], cfg)},
         "final_norm": _map(params["final_norm"], clone),
     }
+    if "shared" in params["stack"]:
+        tree["stack"]["shared"] = _map(params["stack"]["shared"], clone)
+    if "encoder" in params:
+        enc = params["encoder"]
+        tree["encoder"] = {
+            "layers": _zip_map(enc["layers"], lambda xs: torch.stack([x.detach() for x in xs])),
+            "final_norm": _map(enc["final_norm"], clone),
+        }
+    if "frontend_proj" in params:
+        tree["frontend_proj"] = clone(params["frontend_proj"])
+    return tree
 
 
 @torch.no_grad()
@@ -139,15 +168,24 @@ def train_state_to_tree(state, cfg: ModelConfig):
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
     """The reference's params pytree -> the port's params on `device`."""
-    layers = unstack_blocks(tree["stack"]["blocks"], cfg)
-    if "shared" in tree["stack"]:
-        raise NotImplementedError("the zamba2 shared block is not ported yet")
+    _check_keys(tree)
     conv = lambda a: _to_tensor(a, device)  # noqa: E731
-    return {
+    out = {
         "embed": _map(tree["embed"], conv),
-        "stack": {"layers": _map(layers, conv)},
+        "stack": {"layers": _map(unstack_blocks(tree["stack"]["blocks"], cfg), conv)},
         "final_norm": _map(tree["final_norm"], conv),
     }
+    if "shared" in tree["stack"]:
+        out["stack"]["shared"] = _map(tree["stack"]["shared"], conv)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": [_map(enc["layers"], lambda a, i=i: conv(a[i])) for i in range(cfg.n_enc_layers)],
+            "final_norm": _map(enc["final_norm"], conv),
+        }
+    if "frontend_proj" in tree:
+        out["frontend_proj"] = conv(tree["frontend_proj"])
+    return out
 
 
 def router_states_from_numpy(states, cfg: ModelConfig, device="cpu"):

@@ -7,7 +7,9 @@ Skewed unigrams put routing-collapse pressure on the experts; the grammar
 gives the model something to learn. Every batch is a pure function of
 (vocab, seq_len, seed, split, batch index), drawn with numpy exactly as the
 reference draws it, so both packages train on bit-identical tokens; the
-port hands them out as int64 tensors on the model's device.
+port hands them out as int64 tensors on the model's device. Batches of the
+vlm and encdec families also carry the reference's seeded modality stubs
+(`frontend_stubs`).
 """
 from __future__ import annotations
 
@@ -61,17 +63,29 @@ class SyntheticLMDataset:
             yield self.batch(batch_size, b, split, device)
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(f"{cfg.family} input stubs are not ported yet")
+def frontend_stubs(cfg: ModelConfig, batch_size: int, seed: int = 0, device="cpu"):
+    """The modality stubs a batch of `cfg`'s family carries, as the
+    reference draws them: vlm 'patches' (B, frontend_tokens, frontend_dim),
+    encdec 'frames' (B, enc_seq_len, frontend_dim), standard normals from
+    numpy's default_rng(seed) in fp32 (the same for every batch); {} for
+    the token families."""
+    shapes = {
+        "vlm": ("patches", (batch_size, cfg.frontend_tokens, cfg.frontend_dim)),
+        "encdec": ("frames", (batch_size, cfg.enc_seq_len, cfg.frontend_dim)),
+    }
+    if cfg.family not in shapes:
+        return {}
+    key, shape = shapes[cfg.family]
+    stub = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return {key: torch.from_numpy(stub).to(device)}
 
 
 def make_batches(cfg: ModelConfig, batch_size: int, seq_len: int, n_batches: int,
                  seed: int = 0, split: str = "train", device="cpu"):
-    _check_family(cfg)
-    return SyntheticLMDataset(cfg.vocab_size, seq_len, seed=seed).batches(
-        batch_size, n_batches, split, device
-    )
+    ds = SyntheticLMDataset(cfg.vocab_size, seq_len, seed=seed)
+    for batch in ds.batches(batch_size, n_batches, split, device):
+        batch.update(frontend_stubs(cfg, batch_size, seed, device))
+        yield batch
 
 
 class SyntheticBatchStream:
@@ -80,9 +94,10 @@ class SyntheticBatchStream:
 
     def __init__(self, cfg: ModelConfig, batch_size: int, seq_len: int,
                  n_batches: int, seed: int = 0, split: str = "train", device="cpu"):
-        _check_family(cfg)
+        self.cfg = cfg
         self.batch_size = batch_size
         self.n_batches = n_batches
+        self.seed = seed
         self.split = split
         self.device = device
         self._ds = SyntheticLMDataset(cfg.vocab_size, seq_len, seed=seed)
@@ -91,6 +106,7 @@ class SyntheticBatchStream:
     def __iter__(self):
         while self._step < self.n_batches:
             batch = self._ds.batch(self.batch_size, self._step, self.split, self.device)
+            batch.update(frontend_stubs(self.cfg, self.batch_size, self.seed, self.device))
             self._step += 1
             yield batch
 

@@ -24,9 +24,30 @@ Params = Dict[str, Tensor]
 NEG_INF = -2.0e38  # large-negative fill that survives bf16 casts
 
 
+# leaves of more elements are drawn in blocks along their leading axis
+SLICE_NUMEL = 1 << 28
+_BLOCK_NUMEL = 1 << 26
+
+
 def _randn(gen: torch.Generator, shape, scale: float, dtype) -> Tensor:
-    """Seeded normal init on the generator's device, scaled, in `dtype`."""
-    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+    """Seeded normal init on the generator's device, scaled, in `dtype`.
+
+    A leaf of at most SLICE_NUMEL elements is drawn whole in fp32, then
+    scaled and cast. A larger one (arctic's (128, 7168, 4864) expert
+    weights, a 257k-row embedding) is written block by block along its
+    leading axis into a `dtype` tensor, so no fp32 copy of the whole leaf
+    is ever held; it is as seeded, but not the numbers a whole draw gives.
+    """
+    shape = tuple(shape)
+    numel = math.prod(shape)
+    if numel <= SLICE_NUMEL:
+        return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, _BLOCK_NUMEL // (numel // shape[0]))
+    for r0 in range(0, shape[0], rows):
+        blk = out[r0 : r0 + rows]
+        blk.copy_(torch.randn(blk.shape, generator=gen, device=gen.device).mul_(scale))
+    return out
 
 
 # ------------------------------------------------------------------ norms
@@ -314,11 +335,13 @@ def mlp(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Tied token embeddings (the port's models all tie them)."""
-    return {
-        "tok": _randn(gen, (cfg.vocab_size, cfg.d_model), 1.0 / math.sqrt(cfg.d_model),
-                      cfg.param_dtype)
-    }
+    """Token embeddings 'tok' (vocab, d); untied models also get the head
+    'unembed' (d, vocab), as the reference lays them out."""
+    scale = 1.0 / math.sqrt(cfg.d_model)
+    p = {"tok": _randn(gen, (cfg.vocab_size, cfg.d_model), scale, cfg.param_dtype)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = _randn(gen, (cfg.d_model, cfg.vocab_size), scale, cfg.param_dtype)
+    return p
 
 
 def embed(params: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
@@ -326,7 +349,11 @@ def embed(params: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def unembed(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
-    logits = torch.einsum("...d,vd->...v", x, params["tok"].to(cfg.compute_dtype)).float()
+    if cfg.tie_embeddings:
+        logits = torch.einsum("...d,vd->...v", x, params["tok"].to(cfg.compute_dtype))
+    else:
+        logits = torch.einsum("...d,dv->...v", x, params["unembed"].to(cfg.compute_dtype))
+    logits = logits.float()
     if cfg.final_logit_softcap > 0:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)

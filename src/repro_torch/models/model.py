@@ -1,35 +1,46 @@
-"""Top-level model (port of src/repro/models/model.py): embeddings +
-attention/MoE stack + tied head, for training over whole sequences and for
-serving chunk by chunk against a slot cache.
+"""Top-level model (port of src/repro/models/model.py): embeddings, the
+decoder stack, an encoder for the encdec family, a projected patch prefix
+for the vlm family, and the head (tied or untied), for training over whole
+sequences and for serving chunk by chunk against a cache.
 
     Model(cfg, device)                          device defaults to "cuda"
     init(seed)                               -> params
     init_router_states()                     -> per-layer router states
     forward(params, batch, states)           -> (logits, states, aux, mets)
     loss_fn(params, batch, states)           -> (loss, (states, mets))
-    init_slot_cache(params, n_slots, max_len)-> {'layers': [{'k','v','pos'}]}
+    init_cache(params, batch, seq_len)       -> {'layers': [...]} with the
+                                                encoder's cross K/V (per request)
+    init_slot_cache(params, n_slots, max_len)-> {'layers': [...]} (token families)
     reset_slot(cache, slot)                  -> cache (zeroed in place)
     prefill_chunk(params, tokens, cache, states, lengths)
                                              -> (logits, cache, states, mets)
     decode_step(params, tokens, cache, states) -> (logits, cache, states)
 
+Batch keys by family: all 'tokens' (B, S) int64 (training also 'labels');
+vlm 'patches' (B, frontend_tokens, frontend_dim), the SigLIP stub's output;
+encdec 'frames' (B, enc_seq_len, frontend_dim), the speech stub's output.
+
 Parameters, router states and caches are per layer, in layer order (the
-reference scans stacked groups). The cache is updated in place: each step
-writes its K/V rows into the slot tensors instead of copying the cache.
-Attention-only decoder families run; cross-attention, mamba layers, the
-zamba2 shared block and the packed multi-request prefill (`segments=` of
-`prefill_chunk`) raise NotImplementedError; packed training batches
-(`segments` in the batch of `forward`) run.
+reference scans stacked groups). A layer's cache holds 'k', 'v', 'pos'
+(attention; + 'ck', 'cv' for cross attention), or 'ssm', 'conv' (mamba;
++ 'sk', 'sv', 'spos' for the zamba2 shared block's own K/V at that
+depth). The cache is updated in place: each step writes its rows into the
+slot tensors instead of copying the cache. As in the reference, serving
+embeds tokens only (the vlm patch prefix reaches `forward` alone) and the
+slot cache refuses encdec. The packed multi-request prefill (`segments=`
+of `prefill_chunk`) is not ported and raises NotImplementedError.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, moe, stack
+from repro_torch.models import common, mamba2, moe, stack
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -42,6 +53,35 @@ def _merge_load(load_total, vio_max, ld, m_load):
         return load_total, vio_max
     mean = torch.clamp_min(ld.sum() / m_load, 1e-9)
     return load_total + ld, torch.maximum(vio_max, ld.max() / mean - 1.0)
+
+
+# ------------------------------------------------------------- encoder
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, n_layers=cfg.n_enc_layers, attn_pattern=("global",))
+
+
+def _init_encoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Bidirectional transformer encoder (encdec family). Its layers are
+    the decoder's attention + dense layers, cross-attention leaves included
+    (unused, as in the reference's layout)."""
+    enc_cfg = _enc_cfg(cfg)
+    return {
+        "layers": [stack.init_layer(gen, enc_cfg, "global", "dense") for _ in range(cfg.n_enc_layers)],
+        "final_norm": common.init_rmsnorm(cfg.d_model, cfg.param_dtype, gen.device),
+    }
+
+
+def _apply_encoder(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Non-causal self-attention over frame embeddings, then the final norm."""
+    enc_cfg = _enc_cfg(cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for lp in params["layers"]:
+        x = x + common.attention(lp["attn"], common.rmsnorm(lp["pre_norm"], x, cfg.rms_norm_eps),
+                                 enc_cfg, positions=positions, causal=False)
+        x = x + common.mlp(lp["mlp"], common.rmsnorm(lp["ffn_norm"], x, cfg.rms_norm_eps), enc_cfg)
+    return common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
 
 
 class Model:
@@ -59,14 +99,44 @@ class Model:
         different streams; `convert.params_from_numpy` carries those over.)"""
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return {
+        p: Params = {
             "embed": common.init_embedding(gen, cfg),
             "stack": stack.init_stack(gen, cfg),
             "final_norm": common.init_rmsnorm(cfg.d_model, cfg.param_dtype, self.device),
         }
+        if cfg.n_enc_layers:
+            p["encoder"] = _init_encoder(gen, cfg)
+        if cfg.frontend_dim:
+            p["frontend_proj"] = common._randn(
+                gen, (cfg.frontend_dim, cfg.d_model), 1.0 / math.sqrt(cfg.frontend_dim),
+                cfg.param_dtype,
+            )
+        return p
 
     def init_router_states(self) -> list:
         return stack.init_stack_router_states(self.cfg, self.device)
+
+    # -------------------------------------------------------- embedding
+
+    def _embed_inputs(self, params: Params, batch: Dict[str, Tensor]) -> Tuple[Tensor, int]:
+        """Token embeddings, behind the projected patches for vlm. Returns
+        (x, number of prefix positions)."""
+        cfg = self.cfg
+        x = common.embed(params["embed"], batch["tokens"], cfg)
+        if cfg.family != "vlm":
+            return x, 0
+        cd = cfg.compute_dtype
+        proj = torch.einsum("bsf,fd->bsd", batch["patches"].to(cd), params["frontend_proj"].to(cd))
+        return torch.cat([proj, x], dim=1), cfg.frontend_tokens
+
+    def _encode(self, params: Params, batch: Dict[str, Tensor]) -> Optional[Tensor]:
+        """The encoder's output over the projected frames (encdec), or None."""
+        cfg = self.cfg
+        if not cfg.n_enc_layers:
+            return None
+        cd = cfg.compute_dtype
+        proj = torch.einsum("bsf,fd->bsd", batch["frames"].to(cd), params["frontend_proj"].to(cd))
+        return _apply_encoder(params["encoder"], proj, cfg)
 
     # ---------------------------------------------------------- training
 
@@ -75,19 +145,31 @@ class Model:
     ) -> Tuple[Tensor, list, Tensor, Dict[str, Tensor]]:
         """Whole-sequence forward of batch['tokens'] (B, S) int64. Returns
         (logits (B, S, vocab) fp32, new router states, aux loss, metrics)
-        with the stack's '<key>_per_layer' columns. A packed real-text batch
-        carries batch['segments'] (B, S) document ids: attention then stays
-        within each document (routing does not: expert capacity is contested
-        across the whole batch, as in the reference)."""
+        with the stack's '<key>_per_layer' columns; the vlm prefix positions
+        are dropped before the head. A packed real-text batch carries
+        batch['segments'] (B, S) document ids: attention then stays within
+        each document (routing does not: expert capacity is contested across
+        the whole batch, as in the reference). Prefix models ignore
+        segments; ssm/hybrid models refuse them (ValueError): the mamba
+        recurrence would carry state across a document boundary."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = common.embed(params["embed"], tokens, cfg)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        x, n_prefix = self._embed_inputs(params, batch)
+        enc_out = self._encode(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        segments = batch.get("segments") if n_prefix == 0 else None
+        if segments is not None and cfg.family in ("ssm", "hybrid"):
+            raise ValueError(
+                "segment-masked packing (pack_nocross) is attention-only; "
+                f"{cfg.family} architectures leak document state through the "
+                "mamba recurrence: use pack_mode='pack' or 'pad'"
+            )
         x, new_states, aux, mets = stack.apply_stack(
             params["stack"], x, router_states, cfg, positions=positions,
-            segments=batch.get("segments"),
+            segments=segments, enc_out=enc_out,
         )
         x = common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
+        if n_prefix:
+            x = x[:, n_prefix:]
         logits = common.unembed(params["embed"], x, cfg)
         return logits, new_states, aux, mets
 
@@ -109,44 +191,77 @@ class Model:
 
     # ---------------------------------------------------------- serving
 
+    def init_cache(self, params: Params, batch: Dict[str, Tensor], seq_len: int) -> Params:
+        """Decode caches for one batch of requests; the cross-attention K/V
+        are computed here, once, from the encoder's output over
+        batch['frames'] (encdec). Serves any family."""
+        with torch.no_grad():
+            return self._build_cache(params, batch["tokens"].shape[0], seq_len,
+                                     self._encode(params, batch))
+
     def init_slot_cache(self, params: Params, n_slots: int, max_seq_len: int) -> Params:
         """Slot-pool cache for the continuous-batching engine: one cache row
-        per batch slot, recycled across requests via `reset_slot`."""
-        cfg = self.cfg
-        return {
-            "layers": [
-                common.init_attention_cache(
-                    cfg, n_slots, max_seq_len, mixer, cfg.compute_dtype, self.device
-                )
-                for mixer, _ in cfg.layer_kinds()
-            ]
-        }
+        per batch slot, recycled across requests via `reset_slot`. Token
+        families only: encdec needs per-request encoder K/V (ValueError)."""
+        if self.cfg.n_enc_layers:
+            raise ValueError("slot cache: encdec is not supported (its cross K/V are per "
+                             "request); serve it through serving.greedy_generate")
+        return self._build_cache(params, n_slots, max_seq_len, None)
+
+    def _build_cache(self, params: Params, bsz: int, seq_len: int, enc_out) -> Params:
+        cfg, dev = self.cfg, self.device
+        cd = cfg.compute_dtype
+        layers = []
+        for (mixer, _), lp in zip(cfg.layer_kinds(), params["stack"]["layers"]):
+            if mixer in ("global", "local"):
+                c = common.init_attention_cache(cfg, bsz, seq_len, mixer, cd, dev)
+                if enc_out is not None:  # per layer: each layer has its own weights
+                    c["ck"] = torch.einsum("bsd,dhk->bshk", enc_out, lp["cross"]["wk"].to(cd))
+                    c["cv"] = torch.einsum("bsd,dhk->bshk", enc_out, lp["cross"]["wv"].to(cd))
+            else:
+                c = mamba2.init_mamba_cache(cfg, bsz, cd, dev)
+                if mixer.endswith("+shared"):
+                    sc = common.init_attention_cache(cfg, bsz, seq_len, "global", cd, dev)
+                    c.update(sk=sc["k"], sv=sc["v"], spos=sc["pos"])
+            layers.append(c)
+        return {"layers": layers}
 
     @staticmethod
     def reset_slot(cache: Params, slot: int) -> Params:
-        """Zero one slot's row of every cache leaf (K/V and positions), in
-        place. The slot is axis 0 of each per-layer leaf."""
+        """Zero one slot's row of every cache leaf (K/V, positions, SSM and
+        conv state, the shared block's K/V), in place. The slot is axis 0 of
+        each per-layer leaf."""
         for layer in cache["layers"]:
             for leaf in layer.values():
                 leaf[slot] = 0
         return cache
 
-    def _apply_layer_chunk(self, p, x, cfg, mixer_kind, ffn_kind, cache, router_state, lengths):
-        """One layer over a (B, C) token chunk against the slot cache.
-        Returns (x, new_cache, new_router_state, load) with load the
-        per-expert dispatch counts of this layer's real tokens, or None."""
+    def _apply_layer_chunk(self, p, x, cfg, mixer_kind, ffn_kind, cache, router_state, lengths,
+                           shared):
+        """One layer over a (B, C) token chunk against its cache. Returns
+        (x, new_cache, new_router_state, load) with load the per-expert
+        dispatch counts of this layer's real tokens, or None."""
         valid = None
         if lengths is not None:
             valid = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
-        h, new_cache = common.attention_chunk(
-            p["attn"],
-            common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps),
-            cache,
-            cfg,
-            layer_kind=mixer_kind,
-            lengths=lengths,
-        )
-        x = x + stack._maybe_post(p, "post_attn_norm", h, cfg)
+        new_cache = dict(cache)
+        if mixer_kind in ("global", "local"):
+            h, attn_cache = common.attention_chunk(
+                p["attn"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps),
+                {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}, cfg,
+                layer_kind=mixer_kind, lengths=lengths,
+            )
+            new_cache.update(attn_cache)
+            x = x + stack._maybe_post(p, "post_attn_norm", h, cfg)
+            if "ck" in cache:
+                x = x + self._cross_chunk(p, x, cache, valid)
+        else:
+            h, mcache = mamba2.mamba_chunk(
+                p["mamba"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps),
+                {"ssm": cache["ssm"], "conv": cache["conv"]}, cfg, lengths=lengths,
+            )
+            new_cache.update(mcache)
+            x = x + h
 
         load = None
         if ffn_kind == "dense":
@@ -166,11 +281,33 @@ class Model:
                 p["moe"], flat, router_state, cfg, token_mask=token_mask
             )
             load = moe_mets["load"]
-            h = y.reshape(b, s, d)
-            if cfg.n_shared_experts and "shared_mlp" in p:
-                h = h + common.mlp(p["shared_mlp"], xin, cfg)
+            x = x + (y.reshape(b, s, d) + stack._residual_mlps(p, xin, cfg))
+
+        if mixer_kind.endswith("+shared"):
+            h, sc = common.attention_chunk(
+                shared["attn"], common.rmsnorm(shared["pre_norm"], x, cfg.rms_norm_eps),
+                {"k": cache["sk"], "v": cache["sv"], "pos": cache["spos"]}, cfg,
+                layer_kind="global", lengths=lengths,
+            )
+            new_cache.update(sk=sc["k"], sv=sc["v"], spos=sc["pos"])
             x = x + h
+            x = x + common.mlp(shared["mlp"], common.rmsnorm(shared["ffn_norm"], x, cfg.rms_norm_eps), cfg)
         return x, new_cache, router_state, load
+
+    def _cross_chunk(self, p, x, cache, valid):
+        """Cross attention of a chunk's queries against the cached encoder
+        K/V; padded query columns are masked (their output is zero)."""
+        cfg = self.cfg
+        cd = cfg.compute_dtype
+        xq = common.rmsnorm(p["cross_norm"], x, cfg.rms_norm_eps)
+        q = torch.einsum("bsd,dhk->bshk", xq, p["cross"]["wq"].to(cd))
+        b, c, se = x.shape[0], x.shape[1], cache["ck"].shape[1]
+        if valid is None:
+            mask = torch.ones((1, 1, c, se), dtype=torch.bool, device=x.device)
+        else:
+            mask = valid[:, None, :, None].expand(b, 1, c, se)
+        y = common._attend(q, cache["ck"], cache["cv"], mask, 0.0, cd)
+        return torch.einsum("bshk,hkd->bsd", y, p["cross"]["wo"].to(cd))
 
     def prefill_chunk(
         self,
@@ -193,6 +330,7 @@ class Model:
             raise NotImplementedError("packed multi-request prefill is not ported yet")
         cfg = self.cfg
         x = common.embed(params["embed"], tokens, cfg)
+        shared = params["stack"].get("shared")
         m_load = cfg.routing.n_experts if cfg.is_moe else 1
         load_total = torch.zeros((m_load,), dtype=torch.int64, device=tokens.device)
         vio_max = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -200,7 +338,7 @@ class Model:
         for (mixer, ffn), p, c, st in zip(
             cfg.layer_kinds(), params["stack"]["layers"], cache["layers"], router_states
         ):
-            x, nc, st, ld = self._apply_layer_chunk(p, x, cfg, mixer, ffn, c, st, lengths)
+            x, nc, st, ld = self._apply_layer_chunk(p, x, cfg, mixer, ffn, c, st, lengths, shared)
             new_layers.append(nc)
             new_states.append(st)
             load_total, vio_max = _merge_load(load_total, vio_max, ld, m_load)

@@ -7,8 +7,13 @@ position i % period of group i // period in the reference's layout
 (`convert.py` maps one onto the other).
 
 Block structure (pre-norm residual):
-    x += [post_norm](attn(pre_norm(x)))
-    x += [post_norm](ffn(ffn_norm(x)))     ffn in {dense, moe (+ shared mlp)}
+    attention layers:  x += [post_norm](attn(pre_norm(x)))
+                       x += cross(cross_norm(x), enc_out)        (encdec decoder)
+                       x += [post_norm](ffn(ffn_norm(x)))
+                       ffn in {dense, moe (+ dense residual mlp) (+ shared mlp)}
+    mamba layers:      x += mamba(pre_norm(x))
+    'mamba+shared' then applies the weight-SHARED (attn + mlp) block
+    (zamba2), whose one set of weights is params['shared'].
 
 `apply_layer` / `apply_stack` run the training forward over whole
 sequences; MoE layers thread their router state and return their metrics,
@@ -22,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import init_router_state
-from repro_torch.models import common, moe
+from repro_torch.models import common, mamba2, moe
 
 Params = Dict[str, Any]
 
@@ -33,49 +38,65 @@ def _group_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the layer kinds and families the port does not run yet."""
-    for mixer, _ in cfg.layer_kinds():
-        if mixer not in ("global", "local"):
-            raise NotImplementedError(f"{mixer!r} layers are not ported yet")
-    if cfg.n_enc_layers:
-        raise NotImplementedError("cross-attention (encdec) is not ported yet")
-    if cfg.frontend_dim:
-        raise NotImplementedError("modality frontends (vlm) are not ported yet")
-    if cfg.dense_residual:
-        raise NotImplementedError("dense_residual MoE layers are not ported yet")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied embeddings are not ported yet")
+    """Raise for a layer kind the port does not know (every kind the
+    reference's configs produce is ported)."""
+    for mixer, ffn in cfg.layer_kinds():
+        if mixer not in ("global", "local", "mamba", "mamba+shared"):
+            raise NotImplementedError(f"mixer kind {mixer!r} is unknown")
+        if ffn not in ("dense", "moe", "none"):
+            raise NotImplementedError(f"ffn kind {ffn!r} is unknown")
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer_kind: str, ffn_kind: str) -> Params:
-    """One attention layer's parameters (dense or MoE FFN), the reference's
-    shapes and init scales, drawn from `gen` (kinds per check_supported)."""
-    dev = gen.device
-    p: Params = {
-        "pre_norm": common.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev),
-        "attn": common.init_attention(gen, cfg),
-    }
-    if cfg.post_block_norms:
-        p["post_attn_norm"] = common.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev)
-    p["ffn_norm"] = common.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev)
+    """One layer's parameters, the reference's shapes and init scales,
+    drawn from `gen`."""
+    dev, pd = gen.device, cfg.param_dtype
+    p: Params = {"pre_norm": common.init_rmsnorm(cfg.d_model, pd, dev)}
+    if mixer_kind in ("global", "local"):
+        p["attn"] = common.init_attention(gen, cfg)
+        if cfg.post_block_norms:
+            p["post_attn_norm"] = common.init_rmsnorm(cfg.d_model, pd, dev)
+        if cfg.n_enc_layers:  # decoder of an encdec model: cross attention
+            p["cross_norm"] = common.init_rmsnorm(cfg.d_model, pd, dev)
+            p["cross"] = common.init_attention(gen, cfg)
+    else:  # mamba, mamba+shared
+        p["mamba"] = mamba2.init_mamba(gen, cfg)
     if ffn_kind == "dense":
+        p["ffn_norm"] = common.init_rmsnorm(cfg.d_model, pd, dev)
         p["mlp"] = common.init_mlp(gen, cfg)
         if cfg.post_block_norms:
-            p["post_ffn_norm"] = common.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev)
+            p["post_ffn_norm"] = common.init_rmsnorm(cfg.d_model, pd, dev)
     elif ffn_kind == "moe":
+        p["ffn_norm"] = common.init_rmsnorm(cfg.d_model, pd, dev)
         p["moe"] = moe.init_moe(gen, cfg)
+        if cfg.dense_residual:
+            p["mlp"] = common.init_mlp(gen, cfg)
         if cfg.n_shared_experts:
             p["shared_mlp"] = common.init_mlp(
                 gen, cfg, d_ff=(cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts
             )
-    else:
-        raise NotImplementedError(f"ffn kind {ffn_kind!r} is not ported yet")
     return p
 
 
+def init_shared_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """zamba2: one (attn + mlp) block whose weights are shared across uses."""
+    dev = gen.device
+    return {
+        "pre_norm": common.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev),
+        "attn": common.init_attention(gen, cfg),
+        "ffn_norm": common.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev),
+        "mlp": common.init_mlp(gen, cfg),
+    }
+
+
 def init_stack(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Per-layer parameters in layer order: {'layers': [layer_params, ...]}."""
-    return {"layers": [init_layer(gen, cfg, mk, fk) for mk, fk in cfg.layer_kinds()]}
+    """Per-layer parameters in layer order: {'layers': [layer_params, ...]}
+    (+ 'shared', the zamba2 block, when a layer kind uses it)."""
+    kinds = cfg.layer_kinds()
+    p: Params = {"layers": [init_layer(gen, cfg, mk, fk) for mk, fk in kinds]}
+    if any(mk.endswith("+shared") for mk, _ in kinds):
+        p["shared"] = init_shared_block(gen, cfg)
+    return p
 
 
 def init_stack_router_states(cfg: ModelConfig, device="cpu") -> List[Optional[Dict]]:
@@ -93,6 +114,20 @@ def _maybe_post(p: Params, name: str, y, cfg: ModelConfig):
     return y
 
 
+def cross_attention(p: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Decoder queries against the encoder output (no mask, no RoPE), one
+    (chunk, S_enc) score block per query chunk of cfg.attn_chunk."""
+    cd = cfg.compute_dtype
+    s = x.shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(cd))
+    chunk = min(cfg.attn_chunk, s)
+    mask = torch.ones((1, 1, 1, enc_out.shape[1]), dtype=torch.bool, device=x.device)
+    ys = [common._attend(q[:, c0:c0 + chunk], k, v, mask, 0.0, cd) for c0 in range(0, s, chunk)]
+    return torch.einsum("bshk,hkd->bsd", torch.cat(ys, dim=1), p["wo"].to(cd))
+
+
 def apply_layer(
     p: Params,
     x: torch.Tensor,  # (B, S, d)
@@ -103,6 +138,8 @@ def apply_layer(
     *,
     positions: Optional[torch.Tensor] = None,
     segments: Optional[torch.Tensor] = None,
+    enc_out: Optional[torch.Tensor] = None,
+    shared_params: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor, Dict]:
     """One layer over whole sequences. Returns (x, new_router_state,
     aux_loss, metrics); MoE layers report 'max_vio', 'load' and the router's
@@ -111,11 +148,19 @@ def apply_layer(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     mets: Dict[str, torch.Tensor] = {}
     b, s, d = x.shape
-    h = common.attention(
-        p["attn"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps), cfg,
-        layer_kind=mixer_kind, positions=positions, segments=segments,
-    )
-    x = x + _maybe_post(p, "post_attn_norm", h, cfg)
+    if mixer_kind in ("global", "local"):
+        h = common.attention(
+            p["attn"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps), cfg,
+            layer_kind=mixer_kind, positions=positions, segments=segments,
+        )
+        x = x + _maybe_post(p, "post_attn_norm", h, cfg)
+        if enc_out is not None and "cross" in p:
+            x = x + cross_attention(
+                p["cross"], common.rmsnorm(p["cross_norm"], x, cfg.rms_norm_eps), enc_out, cfg
+            )
+    else:  # mamba, mamba+shared
+        x = x + mamba2.mamba_block(p["mamba"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps), cfg)
+
     if ffn_kind == "dense":
         h = common.mlp(p["mlp"], common.rmsnorm(p["ffn_norm"], x, cfg.rms_norm_eps), cfg)
         x = x + _maybe_post(p, "post_ffn_norm", h, cfg)
@@ -124,16 +169,33 @@ def apply_layer(
         y, router_state, aux_moe, moe_mets = moe.moe_ffn_local(
             p["moe"], xin.reshape(b * s, d), router_state, cfg
         )
-        h = y.reshape(b, s, d)
-        if cfg.n_shared_experts and "shared_mlp" in p:
-            h = h + common.mlp(p["shared_mlp"], xin, cfg)
+        h = y.reshape(b, s, d) + _residual_mlps(p, xin, cfg)
         x = x + h
         aux = aux + aux_moe
         mets = {"max_vio": moe_mets["max_vio"], "load": moe_mets["load"]}
         for k in ("dropped_frac_cap1", "q_abs_max", "forecast_err", "forecast_hit"):
             if k in moe_mets:
                 mets[k] = moe_mets[k]
+
+    if mixer_kind.endswith("+shared") and shared_params is not None:
+        sp = shared_params
+        x = x + common.attention(
+            sp["attn"], common.rmsnorm(sp["pre_norm"], x, cfg.rms_norm_eps), cfg,
+            layer_kind="global", positions=positions, segments=segments,
+        )
+        x = x + common.mlp(sp["mlp"], common.rmsnorm(sp["ffn_norm"], x, cfg.rms_norm_eps), cfg)
     return x, router_state, aux, mets
+
+
+def _residual_mlps(p: Params, xin: torch.Tensor, cfg: ModelConfig):
+    """What runs beside the routed experts of a MoE layer: arctic's dense
+    residual FFN and the shared experts (0 when the layer has neither)."""
+    h = 0
+    if cfg.dense_residual and "mlp" in p:
+        h = h + common.mlp(p["mlp"], xin, cfg)
+    if cfg.n_shared_experts and "shared_mlp" in p:
+        h = h + common.mlp(p["shared_mlp"], xin, cfg)
+    return h
 
 
 def apply_stack(
@@ -144,6 +206,7 @@ def apply_stack(
     *,
     positions: Optional[torch.Tensor] = None,
     segments: Optional[torch.Tensor] = None,
+    enc_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, List[Optional[Dict]], torch.Tensor, Dict[str, torch.Tensor]]:
     """Run every layer in order. Returns (x, new_router_states, aux_total,
     metrics) with metrics['<key>_per_layer'] stacked over the MoE layers in
@@ -152,9 +215,11 @@ def apply_stack(
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_states: List[Optional[Dict]] = []
     per_layer: Dict[str, list] = {}
+    shared = params.get("shared")
     for (mixer, ffn), p, st in zip(cfg.layer_kinds(), params["layers"], router_states):
         x, st, aux, mets = apply_layer(
-            p, x, cfg, mixer, ffn, st, positions=positions, segments=segments
+            p, x, cfg, mixer, ffn, st, positions=positions, segments=segments,
+            enc_out=enc_out, shared_params=shared,
         )
         new_states.append(st)
         aux_total = aux_total + aux

@@ -11,12 +11,17 @@ One row per slot: a prompt longer than a chunk prefills chunk by chunk, as
 the reference engine does whenever its packed layout would not cut the
 step count. The packed layout itself and the device mesh are not ported
 yet.
+
+`greedy_generate` is the reference's batched greedy decoding: through the
+engine for the token families, through the per-token path
+(`_legacy_generate`) for encdec and vlm models and for any request that
+carries side inputs (frames, patches), as the reference routes them.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -277,3 +282,62 @@ class ContinuousBatchingEngine:
         while self.scheduler.has_work:
             finished.extend(self.step())
         return finished
+
+
+# ----------------------------------------------------------- compatibility
+
+
+def greedy_generate(
+    model: Model,
+    params,
+    prompts,
+    n_steps: int,
+    max_seq_len: int = 2048,
+    extra_batch: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Batched greedy decoding of `prompts` (B, S) (an array or a tensor)
+    for n_steps tokens each; returns the (B, n_steps) int64 tokens on the
+    CPU. Token families go
+    through the continuous-batching engine; encdec and vlm models, and any
+    call with `extra_batch` side inputs, take the per-token path."""
+    cfg = model.cfg
+    prompts = torch.as_tensor(prompts).to("cpu", torch.int64)
+    if extra_batch or cfg.n_enc_layers or cfg.frontend_dim:
+        return _legacy_generate(model, params, prompts, n_steps, max_seq_len, extra_batch)
+    b, s = prompts.shape
+    eng = ContinuousBatchingEngine(
+        model,
+        params,
+        n_slots=b,
+        chunk_size=min(max(s, 1), 64),
+        # honour the (B, n_steps) contract: never evict on 'length'
+        max_seq_len=max(max_seq_len, s + n_steps + 1),
+    )
+    reqs = [eng.submit(prompts[i].numpy(), n_steps, ignore_eos=True) for i in range(b)]
+    if any(r is None for r in reqs):
+        raise RuntimeError("the engine refused a request")
+    eng.run()
+    return torch.tensor([r.output for r in reqs], dtype=torch.int64)
+
+
+@torch.no_grad()
+def _legacy_generate(model: Model, params, prompts, n_steps, max_seq_len, extra_batch):
+    """Per-token prefill then greedy decode against `Model.init_cache`
+    (the encoder runs once; the vlm prefix is not seen, as in the
+    reference's serving path)."""
+    dev = model.device
+    batch = {"tokens": prompts.to(dev)}
+    for k, v in (extra_batch or {}).items():
+        batch[k] = (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))).to(dev)
+    cache = model.init_cache(params, batch, max_seq_len)
+    states = model.init_router_states()
+    tokens = batch["tokens"]
+    logits = None
+    for t in range(tokens.shape[1]):
+        logits, cache, states = model.decode_step(params, tokens[:, t : t + 1], cache, states)
+    out = []
+    for _ in range(n_steps):
+        nxt = torch.argmax(logits[:, -1:], dim=-1)
+        out.append(nxt)
+        logits, cache, states = model.decode_step(params, nxt, cache, states)
+    return torch.cat(out, dim=1).cpu()
