@@ -14,7 +14,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      (every (A, B) layout pair: K-major or MN-major operands) and fp32,
      with the stated tolerance; then in bf16 at phase 14's MoE serving
      shapes: llama4-scout's (E16 C40 D5120 F8192) and arctic's per expert
-     (C10 D7168 F4864, E cut from 128 to 16 for the check);
+     (C10 D7168 F4864, E cut from 128 to 16 for the check), and at phase
+     15's llama4-scout training shape (E16 C320 D5120 F8192);
   3. a small-input reference check of one full-width MoE layer (kernel path
      against the plain einsum path on the same routing);
   4. serve minimind-moe-16e at full width (seeded random weights) through the
@@ -30,20 +31,23 @@ Phases, in order; any failure raises and the script exits non-zero:
   6. the BIP-ADMM dual kernel (K3): the whole dual update, one launch of
      one thread-block cluster, bit-equal to the plain torch loop at
      (n, m, k, T) = (8192, 16, 4, 4), (8191, 16, 4, 4), (8192, 64, 8, 14),
-     (1000, 64, 8, 4), (4096, 128, 2, 4) and (512, 16, 12, 3), refine
+     (1000, 64, 8, 4), (4096, 128, 2, 4) (arctic's router), (512, 16, 12,
+     3) and (4096, 16, 1, 4) (llama4-scout's), refine
      0/1/2, cold and warm starts, and at refine 1 (the default) within
      2/512 + 5e-3 of the exact sort-based dual; its
      single-pass mode (p and counts) bit-equal at (8192, 16, 4),
      (1000, 64, 8) and a ragged n, default and refined bounds; at the 16e
-     and 64e training shapes the cluster size and shared bytes used, the
+     and 64e training shapes, and llama4-scout's and arctic's router
+     shapes at 4096 tokens, the cluster size and shared bytes used, the
      device time per update (profiler) and per call (CUDA events), the
      plain loop's time, the whole-update bound and a split of the device
      time into iterations and refine passes;
   7. K1/K2 forward at the training shape (E=16, C=2560, D=512, F=1408)
      and at the microbatch shape of phase 11 (C=1280), every layout pair
      in bf16, and their times as in phase 5, also at phase 2's two MoE
-     serving shapes; the expert-FFN backward
-     through K2 at both shapes in bf16 (and at C=2560 in fp32): each
+     serving shapes and llama4-scout's training shape; the expert-FFN
+     backward through K2 at the three training shapes in bf16 (and at
+     C=2560 in fp32): each
      backward product against its plain version on the same inputs, and
      the gradients of all four operands against the same backward run on
      the plain versions; the time of each product;
@@ -141,7 +145,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      per-position relative error in bf16 (FAM_TOL, per stack kind) and, for
      the fp32-param configs, again with fp32 compute (1e-3); mamba2-130m
      and zamba2: ssd_chunked against ssd_reference at full SSM width
-     (fp32), with both times.
+     (fp32), values and the gradients with respect to x, dt, A_log, B, C
+     and D, with both times. For the MoE pair, K1's and K2's functions as
+     torch.bmm on the served weights of one layer, in place (library_ms at
+     the served shape; arctic's E=128).
+ 15. the families trained at full width (TRAIN_FAMILIES): the nine
+     configurations one card can hold, seeded random weights, bf16
+     compute, AdamW at the config's moment dtypes, synthetic batches (2 x
+     2048 tokens; mamba2-130m 8 x 2048; seamless 2 x 1024 with frames (2,
+     4096, 1024); paligemma 2 x 1024 after its 256 patches), depth cut by
+     whole periods (phi4-mini 16, zamba2 24, gemma2 2, deepseek-coder 4,
+     llama4-scout 2) and remat='block' where the activations would not
+     fit (mamba2-130m, stablelm, seamless, phi4-mini, zamba2); arctic-480b does not
+     train on one card at any depth. Each is built, trained, checked and
+     freed in turn: six steps on one fixed batch (finite losses, step 5's
+     below step 0's, a finite gradient everywhere, no leaf without a
+     gradient but seamless's encoder cross leaves), tokens/s, step
+     p50/p99, the peak of max_memory_allocated (gated at 76 GB), busy
+     share and launches per step of two profiled steps, and an fp32
+     control at one period of depth (bf16-compute gradient against
+     fp32-compute on the same params and batch, relative Frobenius error
+     gated at FP32_CONTROL_TOL). mamba2-130m and seamless first train 4
+     steps at full depth through `python -m repro_torch.launch.train`
+     (its main(), seamless with its config's remat set). llama4-scout
+     trains bip with use_kernel: exactly 1 / 9 / 1 K1/K2/K3 launches per
+     MoE layer per step, AvgMaxVio <= 1.0, and one more step under
+     remat='block' launches 2 / 10 / 2.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
 that outlives it (nvcc and nvidia-smi run to completion).
@@ -149,6 +178,7 @@ that outlives it (nvcc and nvidia-smi run to completion).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -184,9 +214,13 @@ K3_CASES = ((8192, 16, 4), (1000, 64, 8), (8191, 16, 4))  # (n, m, k); 8191: rag
 # 64e's (T = 14), a short m = 64 one, arctic's m = 128, a k past the
 # kernel's register list (p by distinct-value sweeps)
 DUAL_CASES = ((8192, 16, 4, 4), (4096, 16, 4, 4), (8191, 16, 4, 4), (8192, 64, 8, 14),
-              (1000, 64, 8, 4), (4096, 128, 2, 4), (512, 16, 12, 3))
-# refine 1, the default; 16e-micro: a microbatch of phase 11
-DUAL_TIMED = {"16e": (8192, 16, 4, 4), "16e-micro": (4096, 16, 4, 4), "64e": (8192, 64, 8, 14)}
+              (1000, 64, 8, 4), (4096, 128, 2, 4), (512, 16, 12, 3), (4096, 16, 1, 4))
+# refine 1, the default; 16e-micro: a microbatch of phase 11; llama4: its
+# router in phase 15's training (2 x 2048 tokens, top-1); arctic: its
+# router shape at the same tokens, checked alone (arctic does not train on
+# one card)
+DUAL_TIMED = {"16e": (8192, 16, 4, 4), "16e-micro": (4096, 16, 4, 4), "64e": (8192, 64, 8, 14),
+              "llama4": (4096, 16, 1, 4), "arctic": (4096, 128, 2, 4)}
 N_BINS = 512
 DUAL_BOUND = 2.0 / 512 + 5e-3  # the reference's histogram-resolution bound
 # end-to-end bf16 gradients: each product rounds once to bf16, and the
@@ -616,7 +650,9 @@ def check_ffn_backward(torch, moe_gemm, kernel_ops, dtype_name, gen, shape=TRAIN
     """The expert-FFN backward through K2 at `shape`: each product against
     its plain version on the same inputs (one bf16 rounding, as phase 2
     holds K1/K2) and timed; then the gradients of all four operands against
-    the same backward run on the plain versions."""
+    the same backward run on the plain versions. Returns per product
+    (kernel ms, plain ms, torch.bmm ms, bound ms, bound_by, max abs error,
+    (E, M, K, N), the layout pair)."""
     dt = getattr(torch, dtype_name)
     e, c, d, f = shape
     x = torch.randn(e, c, d, device="cuda", generator=gen).to(dt)
@@ -650,8 +686,8 @@ def check_ffn_backward(torch, moe_gemm, kernel_ops, dtype_name, gen, shape=TRAIN
         lib_ms = time_ms(torch, torch.bmm, [(a, b)], reps=10)
         m_, k_, n_ = a.shape[1], a.shape[2], b.shape[2]
         b_ms, b_by = bound("grouped_matmul", (e, m_, n_, k_), dtype_name)
-        times[name] = (k_ms, p_ms, lib_ms, b_ms, b_by)
         pair = moe_gemm.tma_layout(a, b)[0] if dt == torch.bfloat16 else ("-", "-")
+        times[name] = (k_ms, p_ms, lib_ms, b_ms, b_by, float(err.max()), (e, m_, k_, n_), pair)
         print(f"  K2 {name:16s} {dtype_name:8s} (E,M,K,N)=({e},{m_},{k_},{n_}) A {pair[0]:2s} B {pair[1]:2s}: "
               f"max_abs_err {float(err.max()):.3e} "
               f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms (torch.bmm) {lib_ms:.4f} "
@@ -686,19 +722,23 @@ def check_ffn_backward(torch, moe_gemm, kernel_ops, dtype_name, gen, shape=TRAIN
     return times
 
 
-def profile_train_steps(torch, step_fn, state, batches):
-    """Trace two training steps with torch.profiler (after the measured run)."""
+def profile_train_steps(torch, step_fn, state, batches, label="profile: training"):
+    """Trace two training steps with torch.profiler (after the measured
+    run); returns summarize_trace's numbers. Device activity only: the
+    summary reads kernels alone, and without the host's operator records
+    the trace of a step with 30-45k launches is read in seconds, not in
+    half a minute."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for batch in batches:
             state, mets = step_fn(state, batch)
         float(mets["loss"])
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    summarize_trace(torch, prof, "profile: training", len(batches), wall_us)
+    return summarize_trace(torch, prof, label, len(batches), wall_us)
 
 
 def train_full_width(torch, tcfg, n_steps, modules):
@@ -1396,6 +1436,16 @@ CHECK_SEQ, CHECK_SPLIT = 48, (20, 13)  # decode-vs-forward: rows split after 20 
 # (the plain version's fp32 copies of all 128 experts would not fit)
 LLAMA4 = (16, 40, 5120, 8192)
 ARCTIC16 = (16, 10, 7168, 4864)
+# phase 15's llama4-scout training: 2 x 2048 tokens, top-1, C = ceil(1.25 * 4096 / 16)
+LLAMA4_TRAIN = (16, 320, 5120, 8192)
+K3_USES = {
+    "llama4": "the whole BIP dual update of one MoE layer, llama4-scout training (n, m, k, T, refine) = "
+              "(4096, 16, 1, 4, 1); launches: phase 15's six llama4-scout steps",
+    "arctic": "the whole BIP dual update at arctic-480b's router shape (n, m, k, T, refine) = "
+              "(4096, 128, 2, 4, 1), checked against the plain loop and timed alone: arctic does not train "
+              "on one card (one layer's params, gradients and moments take ~111 GB), so no main path of "
+              "this run launches it at this shape (launches 0)",
+}
 # chunked serving path against the whole-sequence forward: per position p,
 # e_p = |served_p - forward_p|_2 / |forward_p|_2 over the vocab; the median of
 # e_p and the relative Frobenius error over all positions are gated. In bf16
@@ -1410,7 +1460,7 @@ ARCTIC16 = (16, 10, 7168, 4864)
 # rounding
 FAM_TOL = {"attention": {"median": 0.05, "fro": 0.2}, "mamba": {"median": 0.25, "fro": 0.5},
            "fp32": {"median": 1e-3, "fro": 1e-3}}
-SSD_TOL = 1e-4  # ssd_chunked against ssd_reference, fp32: max|diff| / max|reference|
+SSD_TOL = 1e-4  # ssd_chunked against ssd_reference, fp32: max|diff| / max|reference|, values and gradients
 
 
 def serve_engine(eng, cfg, moe_gemm, rng):
@@ -1569,7 +1619,29 @@ def ssd_check(torch, cfg, mamba2, gen):
           f"sequential {seq_ms:.3f} ms (CUDA events)")
     if not ok:
         raise AssertionError(f"{cfg.name}: ssd_chunked disagrees with ssd_reference")
-    return {"err": err, "chunked_ms": chunked_ms, "seq_ms": seq_ms}
+    # the gradients of both with respect to x, dt, A_log, B, C and D, for
+    # one random cotangent of the output and of the final state
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    dy, dst = rnd(b, s, h, p), rnd(b, h, n, p)
+
+    def grads(fn, **kw):
+        y_, st_ = fn(*leaves, init_state=init, **kw)
+        return torch.autograd.grad((y_ * dy).sum() + (st_ * dst).sum(), leaves)
+
+    got, want = grads(mamba2.ssd_chunked, chunk=cfg.ssm.chunk_size), grads(mamba2.ssd_reference)
+    gerr = {name: float((a - r).abs().max() / r.abs().max())
+            for name, a, r in zip(("x", "dt", "A_log", "B", "C", "D"), got, want)}
+    bwd_ms = time_ms(torch, lambda: grads(mamba2.ssd_chunked, chunk=cfg.ssm.chunk_size), [()])
+    seq_bwd_ms = time_ms(torch, lambda: grads(mamba2.ssd_reference), [()], reps=2)
+    ok = max(gerr.values()) <= SSD_TOL
+    print(f"  ssd_chunked vs ssd_reference gradients (same shapes, fp32), max|diff| / max|reference| per "
+          f"input: {', '.join(f'd{k} {v:.2e}' for k, v in gerr.items())} (tolerance {SSD_TOL:.0e}) "
+          f"{'ok' if ok else 'FAIL'}; forward + backward chunked {bwd_ms:.3f} ms, sequential "
+          f"{seq_bwd_ms:.3f} ms (CUDA events)")
+    if not ok:
+        raise AssertionError(f"{cfg.name}: ssd_chunked's gradients disagree with ssd_reference's")
+    return {"err": err, "chunked_ms": chunked_ms, "seq_ms": seq_ms, "grad_err": gerr,
+            "bwd_ms": bwd_ms, "seq_bwd_ms": seq_bwd_ms}
 
 
 def serve_family(torch, cfg, published, mods, rng, gen):
@@ -1652,8 +1724,33 @@ def serve_family(torch, cfg, published, mods, rng, gen):
         del logits
     if cfg.family in ("ssm", "hybrid"):
         res["ssd"] = ssd_check(torch, cfg, mamba2, gen)
+    if n_moe:
+        res.update(served_library_ms(torch, cfg, params, gen))
     del model, params, leaves
     return res
+
+
+def served_library_ms(torch, cfg, params, gen):
+    """K1's and K2's functions as torch.bmm calls on the served weights of
+    the first MoE layer, in place, at the served capacity: K1's as two
+    calls, x @ wg and x @ wu (a concatenated [wg | wu] copy of arctic's 128
+    experts would take 17.8 GB), K2's as one. Timed by CUDA events: these
+    calls stream the layer's weights for 0.4-6 ms each, far longer than
+    the host takes to issue them, and a profiler trace this late in the run
+    kept 14 of its 30 kernel records (NVIDIA H100 80GB HBM3, 700 W)."""
+    from repro_torch.models import moe
+
+    lp = next(p["moe"] for p, (_, f) in zip(params["stack"]["layers"], cfg.layer_kinds()) if f == "moe")
+    e, d = cfg.routing.n_experts, cfg.d_model
+    c, f = moe.expert_capacity(FAM_SLOTS * FAM_CHUNK, cfg), cfg.moe_d_ff
+    x = torch.randn(e, c, d, device="cuda", generator=gen).bfloat16()
+    h = torch.randn(e, c, f, device="cuda", generator=gen).bfloat16()
+    wg, wu, wd = (lp[k].bfloat16() for k in ("w_gate", "w_up", "w_down"))  # no copy for bf16 params
+    k1_ms = time_ms(torch, lambda x_, a, b: (torch.bmm(x_, a), torch.bmm(x_, b)), [(x, wg, wu)])
+    k2_ms = time_ms(torch, torch.bmm, [(h, wd)])
+    print(f"  library (torch.bmm) on the served weights of one MoE layer at E,C,D,F={(e, c, d, f)}: K1's "
+          f"function (two calls) {k1_ms:.4f} ms, K2's {k2_ms:.4f} ms (CUDA events)")
+    return {"K1_library_ms": k1_ms, "K2_library_ms": k2_ms}
 
 
 def families(torch, np, configs, mods):
@@ -1671,6 +1768,256 @@ def families(torch, np, configs, mods):
         out[arch] = serve_family(torch, cfg, full.n_layers, mods, rng, gen)
         torch.cuda.empty_cache()
     print(f"[families] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# phase 15: the families trained at full width. Every width is the
+# published one; only depth is cut, by whole periods, where one H100 cannot
+# hold params, gradients, Adam moments and activations. remat='block' where
+# the activations would not fit beside them (the reckoning is in PERF.md)
+TRAIN_FAMILIES = (  # (arch id, depth trained (None: published), batch rows, tokens per row, remat)
+    ("mamba2_130m", None, 8, 2048, "block"),
+    ("stablelm_1_6b", None, 2, 2048, "block"),
+    ("seamless_m4t_large_v2", None, 2, 1024, "block"),
+    ("paligemma_3b", None, 2, 1024, "none"),
+    ("phi4_mini_3_8b", 16, 2, 2048, "block"),
+    ("zamba2_7b", 24, 2, 2048, "block"),
+    ("gemma2_27b", 2, 2, 2048, "none"),
+    ("deepseek_coder_33b", 4, 2, 2048, "none"),
+    ("llama4_scout_17b_a16e", 2, 2, 2048, "none"),
+)
+CLI_STEPS = 4  # mamba2-130m and seamless also train through `python -m repro_torch.launch.train`
+CLI_ARCHS = ("mamba2_130m", "seamless_m4t_large_v2")
+# six AdamW steps on one fixed batch, cosine from the peak lr, no warmup.
+# Adam's first steps move every weight by ~lr (m/sqrt(v) = sign(g)), a
+# perturbation that grows with the width; at 5e-4 for every config the
+# losses of zamba2, deepseek-coder and llama4-scout rose by 50-90% within
+# two steps and llama4's router lost its balance (AvgMaxVio 4.9), and at
+# 1e-4 deepseek-coder (d 7168) still ended above its first loss (NVIDIA H100
+# 80GB HBM3, 700 W). So the peak lr falls with the width: FAM_LR at
+# mamba2-130m's d_model of 768, FAM_LR * 768 / d_model elsewhere
+FAM_STEPS, FAM_LR = 6, 1e-4
+PEAK_LIMIT_GB = 76.0
+# the fp32-compute control at one period of depth: relative Frobenius error
+# of the whole gradient, bf16 compute against fp32 compute on the same params
+# and batch. bf16 rounds every product and activation (2^-8 relative), so a
+# gradient through one period differs by ~1-3%; under bip, bf16 scores also
+# route a few capacity-marginal tokens to another expert (top-1), and those
+# tokens' contributions move between experts' gradients
+FP32_CONTROL_TOL = {"dense": 0.1, "moe": 0.3}
+
+
+def train_cli(torch, arch, rows, seq, remat, launch_train, out_dir):
+    """CLI_STEPS steps of `python -m repro_torch.launch.train --arch <id>` at
+    full depth on the synthetic stream (its main(), in this process: no
+    --reduced, no --device). The launcher has no remat flag, so a config
+    that needs remat gets it as a field of its config. Returns its summary."""
+    out = os.path.join(out_dir, f"{arch}.json")
+    argv = ["--arch", arch.replace("_", "-"), "--steps", str(CLI_STEPS), "--batch", str(rows),
+            "--seq-len", str(seq), "--log-every", "1", "--out-json", out]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = launch_train.main(argv, config_fields=None if remat == "none" else {"remat": remat})
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        summary = json.load(f)
+    losses = summary["losses"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  CLI: python -m repro_torch.launch.train {' '.join(argv[:-2])}"
+          + (f" (config remat={remat})" if remat != "none" else "")
+          + f": rc {rc}, losses {[round(v, 4) for v in losses]}, test_ppl {summary['test_ppl']:.2f}, "
+          f"step p50 {1e3 * summary['step_time_p50']:.1f} ms, peak {peak:.2f} GB, wall {wall:.1f} s")
+    if rc != 0 or len(losses) != CLI_STEPS or not all(math.isfinite(v) for v in losses + [summary["test_ppl"]]):
+        raise AssertionError(f"{arch}: the train CLI did not finish with finite losses")
+    if peak > PEAK_LIMIT_GB:
+        raise AssertionError(f"{arch}: the train CLI's peak memory {peak:.2f} GB > {PEAK_LIMIT_GB} GB")
+    return {"losses": losses, "p50": summary["step_time_p50"], "peak_gb": peak}
+
+
+def one_period(torch, cfg, params, adamw):
+    """The config and params cut to one period of the layer pattern (and one
+    encoder layer), every leaf fp32 (a copy for bf16 params)."""
+    period = cfg.scan_period()
+    p = dict(params, stack=dict(params["stack"], layers=params["stack"]["layers"][:period]))
+    if "encoder" in p:
+        p["encoder"] = dict(p["encoder"], layers=p["encoder"]["layers"][:1])
+    if cfg.param_dtype != torch.float32:
+        p = adamw.tree_map(lambda t: t.detach().float(), p)
+    return dataclasses.replace(cfg, n_layers=period, n_enc_layers=min(cfg.n_enc_layers, 1), remat="none",
+                               param_dtype=torch.float32), p
+
+
+def fp32_control(torch, Model, cfg, params, batch, adamw):
+    """One period's loss and gradient in bf16 compute and in fp32 compute on
+    the same params and batch: (relative Frobenius error of the whole
+    gradient, the two losses)."""
+    cfg1, p1 = one_period(torch, cfg, params, adamw)
+    leaves = adamw.tree_leaves(p1)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        m = Model(dataclasses.replace(cfg1, compute_dtype=dt), device="cuda")
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss, _ = m.loss_fn(p1, batch, m.init_router_states())
+        out[dt] = float(loss.detach()), torch.autograd.grad(loss, leaves, allow_unused=True)
+    (lb, gb), (lf, gf) = out[torch.bfloat16], out[torch.float32]
+    if [g is None for g in gb] != [g is None for g in gf]:
+        raise AssertionError(f"{cfg.name}: the fp32 control's leaves without a gradient differ")
+    num = sum(float((a.float() - b.float()).square().sum()) for a, b in zip(gb, gf) if b is not None)
+    den = sum(float(b.float().square().sum()) for b in gf if b is not None)
+    return math.sqrt(num / den), lb, lf
+
+
+def train_family(torch, np, arch, cfg, published, rows, seq, mods, out_dir):
+    """Phase 15 for one configuration (see the module doc): the CLI run
+    where asked, six steps on one fixed batch, two profiled steps, for
+    llama4-scout a remat step, the fp32 control. Returns its numbers."""
+    (Model, make_batches, init_train_state, make_train_step, from_model_config, linear_warmup_cosine,
+     unused_leaves, adamw, moe_gemm, bip_admm, mamba2, launch_train) = mods
+    res = {"layers": cfg.n_layers, "rows": rows, "seq": seq, "remat": cfg.remat}
+    print(f"[train families] {cfg.name} ({cfg.family}): {cfg.n_layers} of {published} layers"
+          + (f" + {cfg.n_enc_layers} encoder layers" if cfg.n_enc_layers else "")
+          + f", d_model {cfg.d_model}, vocab {cfg.vocab_size}, batch {rows} x {seq}"
+          + (f" (+ {cfg.frontend_tokens} patches)" if cfg.family == "vlm" else "")
+          + (f" (frames {cfg.enc_seq_len} x {cfg.frontend_dim})" if cfg.n_enc_layers else "")
+          + f", remat {cfg.remat}, {str(cfg.param_dtype).removeprefix('torch.')} params, "
+          f"{str(cfg.compute_dtype).removeprefix('torch.')} compute, Adam moments {cfg.adam_mu_dtype}/"
+          f"{cfg.adam_nu_dtype}" + (f", {cfg.routing.strategy} use_kernel" if cfg.is_moe else ""))
+    if cfg.family in ("ssm", "hybrid"):
+        each = mamba2.ssd_quadratic_bytes(cfg, rows, seq)
+        n_mamba = cfg.n_layers
+        print(f"  ssd_chunked's (B, nc, Q, Q, H) fp32 tensors (dmat, dexp, cb, cb * dexp): {each / 1e6:.1f} MB "
+              f"each; 3 kept per mamba layer for the backward = {3 * each / 1e9:.2f} GB per layer, "
+              f"{3 * each * n_mamba / 1e9:.2f} GB over {n_mamba} layers without remat")
+    walls, t_part = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t_part
+        walls[part] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    if arch in CLI_ARCHS:
+        res["cli"] = train_cli(torch, arch, rows, seq, cfg.remat, launch_train, out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("cli")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    opt = from_model_config(cfg)
+    state = init_train_state(model, 0, opt)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in adamw.tree_leaves(state.params))
+    batch = next(make_batches(cfg, rows, seq, 1, device="cuda"))
+    lr = FAM_LR * min(1.0, 768 / cfg.d_model)
+    step_fn = make_train_step(model, opt, linear_warmup_cosine(lr, 0, FAM_STEPS))
+    print(f"  {n_params / 1e9:.2f} B params, init {time.perf_counter() - t0:.1f} s, AdamW peak lr {lr:.3g}")
+    lap("init")
+    moe_gemm.reset_launch_counts()  # count only the six steps' launches
+    bip_admm.reset_launch_counts()
+    losses, step_s, vios = [], [], []
+    for _ in range(FAM_STEPS):
+        ts = time.perf_counter()
+        state, mets = step_fn(state, batch)
+        losses.append(float(mets["loss"]))  # wait for the step's device work
+        step_s.append(time.perf_counter() - ts)
+        if not math.isfinite(float(mets["grad_norm"])):  # finite iff every leaf's gradient is
+            raise AssertionError(f"{cfg.name}: a non-finite gradient at step {len(losses) - 1}")
+        if mets["max_vio_per_layer"].numel():
+            vios.append(float(mets["max_vio_per_layer"].max()))
+    launches = (moe_gemm.grouped_gated_ffn_in.launches, moe_gemm.grouped_matmul.launches,
+                bip_admm.bip_dual_update.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steady = np.asarray(step_s[1:])
+    p50, p99 = 1e3 * float(np.percentile(steady, 50)), 1e3 * float(np.percentile(steady, 99))
+    tokens_s = rows * seq / float(steady.mean())
+    no_grad = unused_leaves(cfg, state.params)
+    print(f"  six steps on one batch: losses {[round(v, 4) for v in losses]}; step p50 {p50:.1f} ms p99 "
+          f"{p99:.1f} ms (steps 1-5, host clock to the loss read), tokens/s {tokens_s:.1f}, first step "
+          f"{1e3 * step_s[0]:.1f} ms; peak max_memory_allocated {peak:.2f} GB (limit {PEAK_LIMIT_GB}); "
+          f"leaves without a gradient: {len(no_grad)} (zero gradients, decayed)")
+    res.update(lr=lr, losses=losses, p50=p50, p99=p99, tokens_s=tokens_s, peak_gb=peak, params_b=n_params / 1e9,
+               K1=launches[0], K2=launches[1], K3=launches[2])
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: losses {losses} are not finite and falling")
+    if peak > PEAK_LIMIT_GB:
+        raise AssertionError(f"{cfg.name}: peak memory {peak:.2f} GB > {PEAK_LIMIT_GB} GB")
+    if (cfg.family == "encdec") != bool(no_grad) or not all(
+            p.startswith("encoder.layers[") and ".cross" in p for p in no_grad):
+        raise AssertionError(f"{cfg.name}: leaves without a gradient {sorted(no_grad)[:4]}...")
+    n_moe = sum(f == "moe" for _, f in cfg.layer_kinds())
+    if n_moe:
+        want = (n_moe * FAM_STEPS, 9 * n_moe * FAM_STEPS, n_moe * FAM_STEPS)
+        print(f"  K1/K2/K3 launches in the six steps {launches}, want {want} (per MoE layer per step: K1 1, "
+              f"K2 1 + 8 backward, K3 1); AvgMaxVio {sum(vios) / len(vios):.4f} SupMaxVio {max(vios):.4f} "
+              f"(per step {[round(v, 4) for v in vios]})")
+        res.update(avg_max_vio=sum(vios) / len(vios), sup_max_vio=max(vios))
+        if launches != want:
+            raise AssertionError(f"{cfg.name}: K1/K2/K3 launches {launches}, want {want}")
+        if not res["avg_max_vio"] <= 1.0:
+            raise AssertionError(f"{cfg.name}: AvgMaxVio {res['avg_max_vio']:.4f} > 1.0")
+    lap("six steps")
+    prof = profile_train_steps(torch, step_fn, state, [batch, batch], label=f"train families: {cfg.name}")
+    lap("profile")
+    res.update(busy=None if prof is None else prof["busy"],
+               launches_per_step=None if prof is None else prof["launches"])
+    if n_moe:  # remat recomputes the forward: K1, K2's forward use and K3 once more per MoE layer
+        rstep = make_train_step(Model(dataclasses.replace(cfg, remat="block"), device="cuda"), opt,
+                                linear_warmup_cosine(lr, 0, FAM_STEPS))
+        moe_gemm.reset_launch_counts()
+        bip_admm.reset_launch_counts()
+        state, mets = rstep(state, batch)
+        loss = float(mets["loss"])
+        got = (moe_gemm.grouped_gated_ffn_in.launches, moe_gemm.grouped_matmul.launches,
+               bip_admm.bip_dual_update.launches)
+        want = (2 * n_moe, 10 * n_moe, 2 * n_moe)
+        print(f"  one step under remat='block': loss {loss:.4f}, K1/K2/K3 launches {got}, want {want} "
+              f"(K1 2, K2 2 + 8 backward, K3 2 per MoE layer)")
+        if got != want or not math.isfinite(loss):
+            raise AssertionError(f"{cfg.name}: the remat step launched {got}, want {want}")
+        res["remat_launches"] = got
+        lap("remat step")
+    params = state.params
+    del state, step_fn, mets
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel, lb, lf = fp32_control(torch, Model, cfg, params, batch, adamw)
+    tol = FP32_CONTROL_TOL["moe" if n_moe else "dense"]
+    print(f"  fp32 control at one period ({cfg.scan_period()} layers"
+          + (", 1 encoder layer" if cfg.n_enc_layers else "")
+          + (", params copied to fp32" if cfg.param_dtype != torch.float32 else "")
+          + f"): loss bf16 {lb:.5f} fp32 {lf:.5f}; gradient relative Frobenius error {rel:.3e} "
+          f"(tolerance {tol}) {'ok' if rel <= tol else 'FAIL'}")
+    res.update(control=rel, control_losses=(lb, lf))
+    if not rel <= tol:
+        raise AssertionError(f"{cfg.name}: bf16 gradients {rel:.3e} from the fp32 control")
+    del params, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("control")
+    print(f"  wall by part: {', '.join(f'{k} {v:.1f} s' for k, v in walls.items())}")
+    return res
+
+
+def train_families(torch, np, configs, mods):
+    """Phase 15 (see the module doc): each configuration of TRAIN_FAMILIES
+    built, trained, checked and freed in turn. Returns {arch: numbers}."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    out = {}
+    try:
+        for arch, depth, rows, seq, remat in TRAIN_FAMILIES:
+            full = configs.get(arch)
+            cfg = dataclasses.replace(full, n_layers=depth or full.n_layers, remat=remat)
+            if cfg.is_moe:
+                cfg = dataclasses.replace(cfg, routing=dataclasses.replace(cfg.routing, use_kernel=True))
+            out[arch] = train_family(torch, np, arch, cfg, full.n_layers, rows, seq, mods, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"[train families] phase wall {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -1695,6 +2042,8 @@ def main() -> int:
     from repro_torch.optim import from_model_config, linear_warmup_cosine
     from repro_torch.serving import ContinuousBatchingEngine, greedy_generate
     from repro_torch.training import evaluate_ppl, init_train_state, make_train_step, train_loop
+    from repro_torch.training.loop import unused_leaves
+    from repro_torch.optim import adamw
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1736,7 +2085,8 @@ def main() -> int:
             if shape == SMOKE and dtype_name == "bfloat16":
                 err = errs
     # the MoE serving shapes of phase 14: llama4-scout's, arctic's per expert
-    moe_err = {shape: check_kernels(torch, moe_gemm, shape, "bfloat16", gen) for shape in (LLAMA4, ARCTIC16)}
+    moe_err = {shape: check_kernels(torch, moe_gemm, shape, "bfloat16", gen)
+               for shape in (LLAMA4, ARCTIC16, LLAMA4_TRAIN)}
     torch.cuda.empty_cache()
 
     # -- 3. one full-width MoE layer: kernel path vs plain einsum path
@@ -1845,15 +2195,19 @@ def main() -> int:
           f"and the microbatch shape {MICRO}")
     train_err = check_kernels(torch, moe_gemm, TRAIN, "bfloat16", gen)
     micro_err = check_kernels(torch, moe_gemm, MICRO, "bfloat16", gen)
-    fwd_timings = time_forward(torch, moe_gemm, {TRAIN: 2, MICRO: 2, LLAMA4: 2, ARCTIC16: 2}, gen)
+    fwd_timings = time_forward(torch, moe_gemm, {TRAIN: 2, MICRO: 2, LLAMA4: 2, ARCTIC16: 2, LLAMA4_TRAIN: 2},
+                               gen)
     train_timings, micro_timings = fwd_timings[TRAIN], fwd_timings[MICRO]
     print_forward_times(train_timings, TRAIN)
     print_forward_times(micro_timings, MICRO)
     print_forward_times(fwd_timings[LLAMA4], LLAMA4)
     print_forward_times(fwd_timings[ARCTIC16], ARCTIC16)
+    print_forward_times(fwd_timings[LLAMA4_TRAIN], LLAMA4_TRAIN)
     torch.cuda.empty_cache()
     check_ffn_backward(torch, moe_gemm, kernel_ops, "bfloat16", gen)
     check_ffn_backward(torch, moe_gemm, kernel_ops, "bfloat16", gen, shape=MICRO)
+    llama4_bwd = check_ffn_backward(torch, moe_gemm, kernel_ops, "bfloat16", gen, shape=LLAMA4_TRAIN)
+    torch.cuda.empty_cache()
     check_kernels(torch, moe_gemm, TRAIN, "float32", gen)
     check_ffn_backward(torch, moe_gemm, kernel_ops, "float32", gen)
 
@@ -1907,7 +2261,15 @@ def main() -> int:
         print(f"  arctic {name} at E,C,D,F={shape} in its served steps' trace: "
               + ("not in the trace" if trace_ms is None else f"{trace_ms:.4f} ms of device time per launch")
               + f", bound_ms {b_ms:.4f} ({b_by})")
-        arctic_served[name] = {"served_shape": list(shape), "served_ms": trace_ms, "served_bound_ms": b_ms}
+        arctic_served[name] = {"served_shape": list(shape), "served_ms": trace_ms, "served_bound_ms": b_ms,
+                               "served_library_ms": arctic[f"{k}_library_ms"]}
+    torch.cuda.empty_cache()
+
+    # -- 15. the families trained at full width
+    trained = train_families(torch, np, configs, (
+        Model, make_batches, init_train_state, make_train_step, from_model_config, linear_warmup_cosine,
+        unused_leaves, adamw, moe_gemm, bip_admm, mamba2, launch_train))
+    llama4_trained = trained["llama4_scout_17b_a16e"]
 
     record = []
     for name, line, use, times, shape, n_launches, max_err in (
@@ -1939,6 +2301,12 @@ def main() -> int:
          "bound_ms with E cut to 16; launches counted in phase 14's arctic serve run at E=128; served_ms "
          "and served_bound_ms at E=128 from that run's trace", fwd_timings[ARCTIC16][k2], ARCTIC16,
          arctic["K2"], moe_err[ARCTIC16][k2]),
+        (k1, 41, "forward, llama4-scout training shape (2 x 2048 tokens, top-1, capacity 320); launches: "
+         "phase 15's six llama4-scout steps", fwd_timings[LLAMA4_TRAIN][k1], LLAMA4_TRAIN,
+         llama4_trained["K1"], moe_err[LLAMA4_TRAIN][k1]),
+        (k2, 94, "forward, llama4-scout training shape; launches: phase 15's six llama4-scout steps, all nine "
+         "uses (the eight backward uses have rows of their own)", fwd_timings[LLAMA4_TRAIN][k2], LLAMA4_TRAIN,
+         llama4_trained["K2"], moe_err[LLAMA4_TRAIN][k2]),
     ):
         k_ms, p_ms, lib_ms, _ = times
         b_ms, b_by = bound(name, shape, "bfloat16")
@@ -1957,18 +2325,36 @@ def main() -> int:
             "library_ms": lib_ms,
             **(arctic_served[name] if shape == ARCTIC16 else {}),
         })
+    for use, (k_ms, p_ms, lib_ms, b_ms, b_by, max_err, emkn, pair) in llama4_bwd.items():
+        record.append({
+            "name": k2,
+            "use": f"backward use {use} of the expert FFN at llama4-scout's training shape, (E, M, K, N) = "
+                   f"{emkn}, A {pair[0]}-major, B {pair[1]}-major; launches: one per MoE layer per step of "
+                   f"phase 15's six llama4-scout steps (a ninth of its K2 launches, asserted)",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
+            "replaces": "src/repro/kernels/moe_gemm.py:94",
+            "launches": llama4_trained["K2"] // 9,
+            "max_abs_err": max_err,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib_ms,
+        })
     for label, n_launches in (("16e", train_launches["bip_dual_update"] + matrix_launches["16e"]["K3"]
                                + obs["train"]["K3"]),
                               ("16e-micro", real_launches["bip_dual_update"]
                                + matrix_launches["16e-micro"]["K3"]),
-                              ("64e", train64_launches["bip_dual_update"] + matrix_launches["64e"]["K3"])):
+                              ("64e", train64_launches["bip_dual_update"] + matrix_launches["64e"]["K3"]),
+                              ("llama4", llama4_trained["K3"]), ("arctic", 0)):
         k_ms, p_ms, b_ms, b_by, (n, m, k, n_iters) = k3_timings[label]
         record.append({
             "name": "bip_dual_update",
-            "use": f"the whole BIP dual update of one MoE layer, minimind-moe-{label} training "
+            "use": K3_USES.get(label, f"the whole BIP dual update of one MoE layer, minimind-moe-{label} training "
                    f"(n, m, k, T, refine) = ({n}, {m}, {k}, {n_iters}, 1); launches: "
                    f"{label} training and its phase-12 bip cells"
-                   + (" and phase 13" if label == "16e" else ""),
+                   + (" and phase 13" if label == "16e" else "")),
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/bip_admm.cu",
             "replaces": "src/repro/kernels/bip_admm.py:43",

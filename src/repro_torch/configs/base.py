@@ -178,6 +178,8 @@ class ModelConfig:
             raise ValueError("top_k must not exceed n_experts")
         if "local" in self.attn_pattern and self.window_size <= 0:
             raise ValueError("local attention needs window_size")
+        if self.remat not in ("none", "block"):  # any other value would train without remat
+            raise ValueError(f"remat must be 'none' or 'block', got {self.remat!r}")
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

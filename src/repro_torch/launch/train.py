@@ -33,9 +33,13 @@ Observability: --telemetry run.jsonl streams one record per step
 from a device ring drained every --flush-every steps; summarize it with
 `python -m repro_torch.telemetry.metrics_report run.jsonl`. --profile N:M
 writes a torch.profiler Chrome trace of steps N..M into ./profile.
-The reference's mesh and pod flags (--mesh, --production, --multi-pod,
---coordinator, --num-hosts, --host-id) are not ported (ROADMAP.md, queue
-1, item 7).
+
+Every --arch trains (the reference's twelve configurations): vlm and
+encdec batches carry their seeded patch/frame stubs onto the device, and
+ssm/hybrid models refuse --pack-mode pack_nocross, as the reference's (the
+mamba recurrence would cross document boundaries). The reference's mesh
+and pod flags (--mesh, --production, --multi-pod, --coordinator,
+--num-hosts, --host-id) are not ported (ROADMAP.md, queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -99,7 +103,11 @@ def _build_data_stream(cfg, args, device, faults=None):
     return stream, tokenizer
 
 
-def main(argv=None):
+def main(argv=None, *, config_fields=None):
+    """The CLI. `config_fields` (a caller's, not a flag: the reference's
+    launcher has none for it) replaces fields of --arch's config before
+    anything is built, e.g. {'remat': 'block'} for a model whose
+    activations do not fit on the card otherwise."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--strategy", "--method", dest="strategy", default=None,
@@ -204,6 +212,7 @@ def main(argv=None):
     window = profile_window(args.profile)  # a bad spec fails before any work
     device = resolve_device(args.device)
     cfg = configs.reduced_for_smoke(args.arch) if args.reduced else configs.get(args.arch)
+    cfg = dataclasses.replace(cfg, **(config_fields or {}))
     sync = args.sync or cfg.routing.sync
     routing = dataclasses.replace(
         cfg.routing,
@@ -227,7 +236,7 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
     model = Model(cfg, device=device)
     print(f"training {cfg.name} [{cfg.family}] method={cfg.routing.strategy} "
-          f"sync={cfg.routing.sync} device={device} micro={args.micro} "
+          f"sync={cfg.routing.sync} device={device} micro={args.micro} remat={cfg.remat} "
           f"data={args.data or 'synthetic'}")
     faults = None
     if args.inject:

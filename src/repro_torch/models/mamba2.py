@@ -193,6 +193,18 @@ def ssd_chunked(
     return y.to(x.dtype), st
 
 
+def ssd_quadratic_bytes(cfg: ModelConfig, batch: int, seq: int) -> int:
+    """Bytes of ONE (B, nc, Q, Q, H) fp32 tensor of `ssd_chunked` for a
+    mamba layer of `cfg` over (batch, seq): dmat, dexp, cb and cb * dexp
+    each have this size. The forward holds the four at its peak; autograd
+    keeps three of them per layer for the backward (dexp, exp's output;
+    cb and cb * dexp, the operands of a product), unless the layer is
+    rematerialised."""
+    dm = dims(cfg)
+    q = cfg.ssm.chunk_size
+    return 4 * batch * -(-seq // q) * q * q * dm["n_heads"]
+
+
 # ------------------------------------------------------------- full block
 
 
@@ -285,5 +297,6 @@ __all__ = [
     "mamba_block",
     "mamba_chunk",
     "ssd_chunked",
+    "ssd_quadratic_bytes",
     "ssd_reference",
 ]

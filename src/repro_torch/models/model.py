@@ -37,6 +37,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -74,13 +75,19 @@ def _init_encoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def _apply_encoder(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
-    """Non-causal self-attention over frame embeddings, then the final norm."""
+    """Non-causal self-attention over frame embeddings, then the final norm.
+    Under cfg.remat == "block" each layer is one checkpointed block, as the
+    reference's jax.checkpoint of its scanned encoder layer."""
     enc_cfg = _enc_cfg(cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for lp in params["layers"]:
+
+    def layer(x: Tensor, lp: Params) -> Tensor:
         x = x + common.attention(lp["attn"], common.rmsnorm(lp["pre_norm"], x, cfg.rms_norm_eps),
                                  enc_cfg, positions=positions, causal=False)
-        x = x + common.mlp(lp["mlp"], common.rmsnorm(lp["ffn_norm"], x, cfg.rms_norm_eps), enc_cfg)
+        return x + common.mlp(lp["mlp"], common.rmsnorm(lp["ffn_norm"], x, cfg.rms_norm_eps), enc_cfg)
+
+    for lp in params["layers"]:
+        x = checkpoint(layer, x, lp, use_reentrant=False) if cfg.remat == "block" else layer(x, lp)
     return common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
 
 

@@ -18,12 +18,21 @@ Block structure (pre-norm residual):
 `apply_layer` / `apply_stack` run the training forward over whole
 sequences; MoE layers thread their router state and return their metrics,
 which `apply_stack` stacks into '<key>_per_layer' columns in layer order.
+
+`cfg.remat == "block"` recomputes activations in the backward pass, as the
+reference's `jax.checkpoint` of each scanned period: every whole period of
+layers runs under `torch.utils.checkpoint` (non-reentrant), the tail
+remainder layers outside it. A period's router states and metrics leave
+it as return values (nothing in the block writes in place), so the
+recomputation changes neither; it does launch the period's kernels once
+more (K1, K2's forward use and K3 per MoE layer).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import init_router_state
@@ -211,20 +220,44 @@ def apply_stack(
     """Run every layer in order. Returns (x, new_router_states, aux_total,
     metrics) with metrics['<key>_per_layer'] stacked over the MoE layers in
     layer order (e.g. 'max_vio_per_layer' (n_moe,), 'load_per_layer'
-    (n_moe, m) int64)."""
+    (n_moe, m) int64). Under cfg.remat == "block" each whole period of
+    layers is one checkpointed block (see the module doc)."""
+    kinds = cfg.layer_kinds()
+    shared = params.get("shared")
+
+    def run(lo: int, hi: int, x: torch.Tensor, states: List[Optional[Dict]]):
+        """Layers lo..hi-1 in order: (x, their new states, auxes, metrics)."""
+        out_states, auxes, mets_list = [], [], []
+        for (mixer, ffn), p, st in zip(kinds[lo:hi], params["layers"][lo:hi], states):
+            x, st, aux, mets = apply_layer(
+                p, x, cfg, mixer, ffn, st, positions=positions, segments=segments,
+                enc_out=enc_out, shared_params=shared,
+            )
+            out_states.append(st)
+            auxes.append(aux)
+            mets_list.append(mets)
+        return x, out_states, auxes, mets_list
+
+    remat = cfg.remat == "block"
+    period, n_groups, _ = _group_layout(cfg)
+    # whole periods first (one checkpointed block each under remat), then
+    # the tail remainder layers one by one, as the reference's scan + tail
+    spans = [(g * period, (g + 1) * period) for g in range(n_groups)]
+    spans += [(i, i + 1) for i in range(n_groups * period, len(kinds))]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_states: List[Optional[Dict]] = []
     per_layer: Dict[str, list] = {}
-    shared = params.get("shared")
-    for (mixer, ffn), p, st in zip(cfg.layer_kinds(), params["layers"], router_states):
-        x, st, aux, mets = apply_layer(
-            p, x, cfg, mixer, ffn, st, positions=positions, segments=segments,
-            enc_out=enc_out, shared_params=shared,
-        )
-        new_states.append(st)
-        aux_total = aux_total + aux
-        for k, v in mets.items():
-            per_layer.setdefault(k, []).append(v)
+    for g, (lo, hi) in enumerate(spans):
+        states = list(router_states[lo:hi])
+        if remat and g < n_groups:
+            x, states, auxes, mets_list = checkpoint(run, lo, hi, x, states, use_reentrant=False)
+        else:
+            x, states, auxes, mets_list = run(lo, hi, x, states)
+        new_states.extend(states)
+        for aux, mets in zip(auxes, mets_list):
+            aux_total = aux_total + aux
+            for k, v in mets.items():
+                per_layer.setdefault(k, []).append(v)
     metrics = {f"{k}_per_layer": torch.stack(v) for k, v in per_layer.items()}
     if "max_vio_per_layer" not in metrics:
         metrics["max_vio_per_layer"] = torch.zeros((0,), dtype=torch.float32, device=x.device)

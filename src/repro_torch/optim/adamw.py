@@ -13,6 +13,8 @@ params and moments IN PLACE under torch.no_grad() (one copy of the state
 lives on the device) and returns the same trees; `step` is a host integer.
 With `guard` (the guarded train step), every write selects the old value
 where the step is not ok, so a skipped step leaves the state bit-identical.
+A leaf is updated in slices of _SLICE elements, which bounds the update's
+temporaries without changing a bit of its result (the math is elementwise).
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 Tensor = torch.Tensor
+# elements per slice of a leaf's update (256 MB of fp32): a 1e9-element
+# embedding would otherwise hold ~6 fp32 temporaries of 4 GB at once
+_SLICE = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,17 +128,22 @@ def adamw_update(
     c2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** float(step)
     c1, c2 = float(c1), float(c2)  # host scalars: fp32 values, no device sync
     for g, mu, nu, (path, p) in zip(grads, mu_leaves, nu_leaves, p_paths):
-        if scale is not None:
-            g = g * scale.to(g.dtype)
-        g32 = g.float()
-        mu_n = b1 * mu.float() + (1 - b1) * g32
-        nu_n = b2 * nu.float() + (1 - b2) * g32 * g32
-        delta = (mu_n / c1) / (torch.sqrt(nu_n / c2) + cfg.eps)
-        if decay[path] and cfg.weight_decay > 0:  # matrices of the reference's layout
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_(keep(p.float() - lr * delta, p))
-        mu.copy_(keep(mu_n, mu))
-        nu.copy_(keep(nu_n, nu))
+        wd = cfg.weight_decay if decay[path] else 0.0  # matrices of the reference's layout
+        # slice by slice: the same elementwise math, with the fp32
+        # temporaries of one slice live at a time, not of a whole leaf
+        for gs, ps, mus, nus in zip(g.reshape(-1).split(_SLICE), p.view(-1).split(_SLICE),
+                                    mu.view(-1).split(_SLICE), nu.view(-1).split(_SLICE)):
+            if scale is not None:
+                gs = gs * scale.to(gs.dtype)
+            g32 = gs.float()
+            mu_n = b1 * mus.float() + (1 - b1) * g32
+            nu_n = b2 * nus.float() + (1 - b2) * g32 * g32
+            delta = (mu_n / c1) / (torch.sqrt(nu_n / c2) + cfg.eps)
+            if wd > 0:
+                delta = delta + wd * ps.float()
+            ps.copy_(keep(ps.float() - lr * delta, ps))
+            mus.copy_(keep(mu_n, mus))
+            nus.copy_(keep(nu_n, nus))
     if ok is None:
         opt_state["step"] = step
         return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -41,10 +41,11 @@ Everything on a mesh is not ported yet (ROADMAP.md, queue 1, item 7).
 from __future__ import annotations
 
 import dataclasses
+import re
 import signal
 import threading
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +81,19 @@ def init_train_state(model: Model, seed: int, opt_cfg: _adamw.AdamWConfig) -> Tr
         opt_state=_adamw.adamw_init(params, opt_cfg),
         router_states=model.init_router_states(),
     )
+
+
+_ENCODER_CROSS = re.compile(r"encoder\.layers\[\d+\]\.(cross|cross_norm)\.")
+
+
+def unused_leaves(cfg, params) -> Set[str]:
+    """Paths of the leaves the loss never reaches: an encdec model's encoder
+    layers carry cross-attention leaves (`encoder.layers[*].cross.*`,
+    `encoder.layers[*].cross_norm.*`) that nothing uses, as in the
+    reference's layout; every other model has none."""
+    if not cfg.n_enc_layers:
+        return set()
+    return {path for path, _ in _adamw.tree_paths(params) if _ENCODER_CROSS.match(path)}
 
 
 def _split_micro(batch: Dict[str, torch.Tensor], k: int) -> List[Dict[str, torch.Tensor]]:
@@ -147,7 +161,13 @@ def make_train_step(
     the stack's '<key>_per_layer' columns and, guarded, 'step_ok'). The
     unguarded step never waits for the device; the guarded one reads
     'step_ok' once, after every launch of the step is issued. With
-    microbatches=k the batch's rows must divide by k (ValueError)."""
+    microbatches=k the batch's rows must divide by k (ValueError).
+
+    The leaves the loss may leave without a gradient are exactly those of
+    `unused_leaves` (an encdec model's encoder cross leaves); they get zero
+    gradients, so AdamW decays them as the reference's does. Any other
+    leaf the loss does not reach, or an allowed one it does, raises
+    RuntimeError naming its path."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
 
@@ -157,16 +177,25 @@ def make_train_step(
             if inject_nan:
                 # fault seam (robustness/faults.NanGrad): grads = NaN * dL
                 loss = loss * float("nan")
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            unused = {path for path, g in zip(decay, grads) if g is None}  # decay: every path, in order
+            if unused != no_grad_ok:
+                raise RuntimeError(
+                    "the loss does not reach exactly the leaves allowed no gradient: unused "
+                    f"{sorted(unused - no_grad_ok)}, allowed but used {sorted(no_grad_ok - unused)}")
+            # the encoder's cross leaves: zero gradients, as jax.grad gives them
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
         mets = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in mets.items()}
         mets["loss"] = loss.detach()
         return grads, router, mets
 
     decay: Dict[str, bool] = {}  # AdamW's weight-decay mask, built at the first step
+    no_grad_ok: Set[str] = set()  # the leaves the loss never reaches, built with `decay`
 
     def run(state: TrainState, batch, controls):
         if not decay:
             decay.update(decay_mask(state.params))
+            no_grad_ok.update(unused_leaves(model.cfg, state.params))
         inject, force_skip, lr_scale = (False, False, 1.0) if controls is None else (
             float(controls[CTRL_INJECT_NAN]) > 0,
             float(controls[CTRL_FORCE_SKIP]) > 0,

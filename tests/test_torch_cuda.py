@@ -181,7 +181,7 @@ def test_engine_serves_through_the_kernels(cuda_device):
     assert moe_gemm.grouped_matmul.launches == launches
 
 
-@pytest.mark.parametrize("n,m,k", [(8192, 16, 4), (1000, 64, 8), (1001, 16, 4)])
+@pytest.mark.parametrize("n,m,k", [(8192, 16, 4), (1000, 64, 8), (1001, 16, 4), (4096, 128, 2)])
 @pytest.mark.parametrize("refined", [False, True])
 def test_admm_kernel_is_bit_equal_to_plain(cuda_device, n, m, k, refined):
     """K3's single-pass mode (the Pallas function's contract): p and counts
@@ -204,10 +204,11 @@ def test_admm_kernel_is_bit_equal_to_plain(cuda_device, n, m, k, refined):
 
 
 # (n, m, k, T): minimind-moe-16e's training shape, a ragged n, 64e's own
-# shape and T, a short one at m = 64, arctic's m = 128, and a k past the
-# register list (p by distinct-value sweeps)
+# shape and T, a short one at m = 64, arctic's m = 128, a k past the
+# register list (p by distinct-value sweeps), and llama4-scout's training
+# router (2 x 2048 tokens, top-1)
 DUAL_CASES = [(8192, 16, 4, 4), (8191, 16, 4, 4), (8192, 64, 8, 14), (1000, 64, 8, 4),
-              (4096, 128, 2, 4), (512, 16, 12, 3)]
+              (4096, 128, 2, 4), (512, 16, 12, 3), (4096, 16, 1, 4)]
 
 
 def _dual_inputs(dev, n, m, warm, seed=0):
@@ -320,6 +321,48 @@ def test_expert_ffn_backward_through_kernels(cuda_device, dtype):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * b.abs().max().item())
         else:
             assert float((a - b).norm() / b.norm()) <= 2.0**-6
+
+
+def test_backward_uses_at_capacity_320(cuda_device):
+    """K2's eight backward uses over the views the expert-FFN backward
+    passes, at llama4-scout's training capacity C = 320 (E, D, F cut to 4,
+    256, 512): TMA takes every operand (C's stride of 320 bf16 elements is
+    on its 16-byte grain), each product is one bf16 rounding of its plain
+    version, and the gradients match the backward on the plain versions
+    within 2^-6 in norm."""
+    x, wg, wu, wd = _inputs((4, 320, 256, 512), torch.bfloat16, cuda_device, seed=3)
+    dy = torch.randn(x.shape, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(4)).bfloat16()
+    t = lambda a: a.transpose(-1, -2)  # noqa: E731
+    mm = moe_gemm.grouped_matmul_plain
+    g, u = mm(x, wg), mm(x, wu)
+    h = (torch.nn.functional.silu(g.float()) * u.float()).bfloat16()
+    dh = mm(dy, t(wd))
+    products = {"g": (x, wg), "u": (x, wu), "dh": (dy, t(wd)), "dwd": (t(h), dy), "dx_g": (dh, t(wg)),
+                "dx_u": (dh, t(wu)), "dwg": (t(x), dh), "dwu": (t(x), g)}
+    pairs = set()
+    for name, (a, b) in products.items():
+        pairs.add(moe_gemm.tma_layout(a, b)[0])
+        got, want = moe_gemm.grouped_matmul(a, b).float(), mm(a, b).float()
+        torch.testing.assert_close(got, want, rtol=2.0**-6, atol=2.0**-8 * want.abs().max().item(),
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    assert {("K", "MN"), ("K", "K"), ("MN", "MN")} <= pairs
+
+    def grads():
+        leaves = [a.detach().clone().requires_grad_(True) for a in (x, wg, wu, wd)]
+        ops.expert_ffn(*leaves).backward(dy)
+        return [a.grad.float() for a in leaves]
+
+    moe_gemm.reset_launch_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    assert (moe_gemm.grouped_gated_ffn_in.launches, moe_gemm.grouped_matmul.launches) == (1, 9)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(moe_gemm, "grouped_gated_ffn_in", moe_gemm.grouped_gated_ffn_in_plain)
+        mp.setattr(moe_gemm, "grouped_matmul", moe_gemm.grouped_matmul_plain)
+        want = grads()
+    for a, b in zip(got, want):
+        assert float((a - b).norm() / b.norm()) <= 2.0**-6
 
 
 def test_train_steps_launch_the_kernels(cuda_device):
