@@ -171,6 +171,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      trains bip with use_kernel: exactly 1 / 9 / 1 K1/K2/K3 launches per
      MoE layer per step, AvgMaxVio <= 1.0, and one more step under
      remat='block' launches 2 / 10 / 2.
+ 16. packed multi-request serving prefill at full width (PACKED):
+     minimind-moe-16e (8 layers, bf16, bip, use_kernel=True),
+     stablelm-1.6b (24 layers, bf16), deepseek-coder-33b (16 of 62 layers)
+     and an fp32-compute control of stablelm, seeded random weights, 16
+     slots x chunk 32, max_seq_len 2048; each serves the same seeded
+     requests (two prompts of 1024 tokens and six of 8-24, submitted
+     together, 32 greedy tokens each) twice: on the packed schedule (the
+     engine's default: the long prompts' chunks spread across free rows)
+     and on the one-row-per-slot one (`_can_spread = False`). Per
+     schedule: steps and the share that took the packed program, wall,
+     tokens/s, TTFT p50/p99 of the long and the short requests on the
+     engine's clock, step p50/p99, K1/K2 launches per step, peak memory
+     and, under bip, MaxVio per step. Asserted: fewer packed steps than
+     one-row steps in every configuration, K1/K2 exactly 8 / 8 per step on
+     minimind on both schedules, every sampled logit finite, and in the
+     fp32 control every greedy token equal and each request's first-token
+     logits within relative L2 PACKED_FP32_TOL between the schedules; in
+     bf16 the share of equal tokens is printed. Phase 4's prompts of
+     16-96 tokens pack wherever rows are free, too.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
 that outlives it (nvcc and nvidia-smi run to completion).
@@ -2021,6 +2040,168 @@ def train_families(torch, np, configs, mods):
     return out
 
 
+# phase 16: packed multi-request serving prefill at full width. Each
+# configuration serves the same requests twice, through the packed schedule
+# (the engine's default) and the one-row-per-slot one (`_can_spread =
+# False`); two long prompts behind chunk 32 leave most rows free, which the
+# packed schedule spreads their chunks across
+PACKED = (  # (arch id, layers served (None: the published depth), compute dtype override)
+    ("minimind_moe_16e", None, None), ("stablelm_1_6b", None, None),
+    ("deepseek_coder_33b", 16, None), ("stablelm_1_6b", None, "float32"),
+)
+PACKED_SLOTS, PACKED_CHUNK, PACKED_MAX_SEQ, PACKED_GEN = 16, 32, 2048, 32
+PACKED_LONG, PACKED_SHORT = (1024, 1024), (6, 8, 24)  # 2 long prompts; 6 of 8-24 tokens
+PACKED_SEED = 16
+# the fp32 control: first-token logits of each request, packed against
+# one-row, relative L2 over the vocab. The two schedules attend over key
+# axes of other lengths (cache + chunk against cache) and sum in other
+# orders: a few fp32 roundings, nothing more
+PACKED_FP32_TOL = 1e-4
+
+
+def serve_schedule(torch, eng, cfg, prompts, moe_gemm, spread):
+    """Phase 16's traffic through `eng` on one schedule (spread=False: the
+    one-row-per-slot one), after a warm-up run of the same schedule.
+    Returns the run's numbers, each request's tokens and the logits its
+    first token was sampled from (host, fp32)."""
+    import numpy as np
+
+    eng._can_spread = spread
+    warm = np.random.default_rng(0).integers(0, cfg.vocab_size, (3 * PACKED_CHUNK,))
+    for plen in (3 * PACKED_CHUNK, 8):
+        eng.submit(warm[:plen], 2, ignore_eos=True)
+    eng.run()
+    eng.telemetry.reset()
+    n_packed = [0]
+    step_packed = eng._serve_step_packed
+
+    def counted(*arrays):
+        n_packed[0] += 1
+        return step_packed(*arrays)
+
+    nonfinite = torch.zeros((), dtype=torch.int64, device="cuda")
+    last_rows = {}
+    sample = eng._sample
+
+    def checked(last, mets):  # every row the step samples from, idle slots' rows too
+        nonfinite.add_((~torch.isfinite(last)).sum())
+        last_rows["last"] = last
+        return sample(last, mets)
+
+    eng._serve_step_packed, eng._sample = counted, checked
+    reqs = [eng.submit(p, PACKED_GEN, ignore_eos=True) for p in prompts]
+    if any(r is None for r in reqs):
+        raise AssertionError(f"{cfg.name}: the engine refused a request")
+    first = {}
+    moe_gemm.reset_launch_counts()  # count only this run's launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    t_run = time.perf_counter()
+    while eng.scheduler.has_work:
+        ts = time.perf_counter()
+        eng.step()
+        step_s.append(time.perf_counter() - ts)
+        for i, slot in eng.scheduler.active():
+            if len(slot.request.output) == 1 and slot.request.req_id not in first:
+                first[slot.request.req_id] = last_rows["last"][i].float().cpu()
+    wall = time.perf_counter() - t_run
+    del eng._serve_step_packed, eng._sample
+    launches = (moe_gemm.grouped_gated_ffn_in.launches, moe_gemm.grouped_matmul.launches)
+    for r in reqs:
+        if r.finish_reason != "max_new_tokens" or len(r.output) != PACKED_GEN:
+            raise AssertionError(f"{cfg.name}: request {r.req_id} ended {r.finish_reason} "
+                                 f"with {len(r.output)} tokens")
+    if int(nonfinite) != 0:
+        raise AssertionError(f"{cfg.name}: {int(nonfinite)} sampled logits are not finite "
+                             f"({'packed' if spread else 'one-row'} schedule)")
+    ttft = [1e3 * (r.t_first_token - r.t_submitted) for r in reqs]
+    n_long = len(PACKED_LONG)
+    vio = eng.max_vio_per_step
+    return {"steps": eng.n_steps, "wall": wall, "tokens": eng.prefill_tokens + eng.decode_tokens,
+            "step_s": step_s, "ttft_long": ttft[:n_long], "ttft_short": ttft[n_long:],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+            "packed_steps": n_packed[0], "vio": (float(np.mean(vio)), float(np.max(vio))) if cfg.is_moe else None,
+            "outputs": [list(r.output) for r in reqs], "first": [first[r.req_id] for r in reqs]}
+
+
+def packed_serving(torch, configs, mods):
+    """Phase 16 (see the module doc): each configuration of PACKED built,
+    served on both schedules, compared and freed in turn. Returns
+    {label: {schedule: numbers}}; the minimind-moe-16e runs' K1/K2
+    launches are under 'K1' and 'K2'."""
+    import numpy as np
+
+    Model, ContinuousBatchingEngine, moe_gemm = mods
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(PACKED_SEED)
+    out = {"K1": 0, "K2": 0}
+    for arch, depth, compute in PACKED:
+        full = configs.get(arch)
+        cfg = full if depth is None else dataclasses.replace(full, n_layers=depth)
+        if compute is not None:
+            cfg = dataclasses.replace(cfg, compute_dtype=getattr(torch, compute))
+        n_moe = sum(f == "moe" for _, f in cfg.layer_kinds())
+        lens = list(PACKED_LONG) + [int(n) for n in rng.integers(PACKED_SHORT[1], PACKED_SHORT[2] + 1,
+                                                                  PACKED_SHORT[0])]
+        prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+        label = f"{cfg.name} ({cfg.n_layers} of {full.n_layers} layers, " \
+                f"{str(cfg.compute_dtype).removeprefix('torch.')} compute" \
+                + (f", {cfg.routing.strategy}, use_kernel" if n_moe else "") + ")"
+        model = Model(cfg, device="cuda")
+        params = model.init(seed=0)
+        runs = {}
+        for spread in (True, False):
+            eng = ContinuousBatchingEngine(model, params, n_slots=PACKED_SLOTS, chunk_size=PACKED_CHUNK,
+                                           max_seq_len=PACKED_MAX_SEQ, use_kernel=True if n_moe else None)
+            if not eng._can_spread:
+                raise AssertionError(f"{cfg.name}: an all-global stack must spread")
+            run = runs["packed" if spread else "one-row"] = serve_schedule(torch, eng, cfg, prompts, moe_gemm,
+                                                                            spread)
+            del eng
+            torch.cuda.empty_cache()
+            st = sorted(run["step_s"])
+            p50, p99 = 1e3 * st[len(st) // 2], 1e3 * st[min(len(st) - 1, int(round(0.99 * (len(st) - 1))))]
+            ttft = tuple(np.percentile(run[k], q) for k in ("ttft_long", "ttft_short") for q in (50, 99))
+            per_step = tuple(n / run["steps"] for n in run["launches"])
+            print(f"[packed] {label}, {'packed' if spread else 'one-row'} schedule: {run['steps']} steps "
+                  f"({run['packed_steps']} packed, {run['packed_steps'] / run['steps']:.3f}), wall "
+                  f"{run['wall']:.3f} s, tokens/s {run['tokens'] / run['wall']:.1f}, TTFT (numpy percentiles) "
+                  "long p50/p99 %.1f / %.1f ms, short %.1f / %.1f ms" % ttft
+                  + f", step p50 {p50:.2f} ms p99 {p99:.2f} ms, K1/K2 launches per step {per_step[0]:.2f} / "
+                  f"{per_step[1]:.2f}, peak {run['peak_gb']:.2f} GB"
+                  + ("" if run["vio"] is None else ", MaxVio per step mean %.4f max %.4f" % run["vio"]))
+            run.update(p50=p50, p99=p99)
+            if n_moe:
+                if run["launches"] != (n_moe * run["steps"],) * 2:
+                    raise AssertionError(f"{cfg.name}: K1/K2 launches {run['launches']} in {run['steps']} "
+                                         f"steps, want {n_moe} per step")
+                out["K1"] += run["launches"][0]
+                out["K2"] += run["launches"][1]
+        pk, one = runs["packed"], runs["one-row"]
+        same = [a == b for pa, pb in zip(pk["outputs"], one["outputs"]) for a, b in zip(pa, pb)]
+        gaps = [float((a - b).norm() / b.norm()) for a, b in zip(pk["first"], one["first"])]
+        print(f"  packed against one-row: steps {pk['steps']} / {one['steps']}, TTFT of the long prompts "
+              f"{np.mean(pk['ttft_long']):.1f} / {np.mean(one['ttft_long']):.1f} ms, equal tokens "
+              f"{sum(same)} of {len(same)} ({sum(same) / len(same):.3f}), first-token logits relative L2 "
+              f"largest {max(gaps):.3e}")
+        if not pk["steps"] < one["steps"]:
+            raise AssertionError(f"{cfg.name}: packed took {pk['steps']} steps, one-row {one['steps']}")
+        if compute == "float32":
+            ok = max(gaps) <= PACKED_FP32_TOL and all(same)
+            print(f"  fp32 control: largest first-token logit gap {max(gaps):.3e} (tolerance "
+                  f"{PACKED_FP32_TOL}), every greedy token equal: {all(same)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{cfg.name}: the packed schedule disagrees with the one-row one in fp32")
+        for run in runs.values():
+            del run["first"], run["outputs"]
+        out[label] = runs
+        del model, params
+        torch.cuda.empty_cache()
+    print(f"[packed] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2270,16 +2451,20 @@ def main() -> int:
         Model, make_batches, init_train_state, make_train_step, from_model_config, linear_warmup_cosine,
         unused_leaves, adamw, moe_gemm, bip_admm, mamba2, launch_train))
     llama4_trained = trained["llama4_scout_17b_a16e"]
+    torch.cuda.empty_cache()
+
+    # -- 16. packed multi-request serving prefill at full width
+    packed = packed_serving(torch, configs, (Model, ContinuousBatchingEngine, moe_gemm))
 
     record = []
     for name, line, use, times, shape, n_launches, max_err in (
-        (k1, 41, "forward, serving shape; launches: serving (phases 4, 13)", timings[k1], serve_shape,
-         launches[k1] + obs["serve"]["K1"], err[k1]),
+        (k1, 41, "forward, serving shape; launches: serving (phases 4, 13, 16)", timings[k1], serve_shape,
+         launches[k1] + obs["serve"]["K1"] + packed["K1"], err[k1]),
         (k1, 41, "forward, training shape; launches: training (phase 8), phase 12's 16e synthetic "
          "cells and phase 13", train_timings[k1], TRAIN,
          train_launches[k1] + matrix_launches["16e"]["K1"] + obs["train"]["K1"], train_err[k1]),
-        (k2, 94, "forward, serving shape; launches: serving (phases 4, 13)", timings[k2], serve_shape,
-         launches[k2] + obs["serve"]["K2"], err[k2]),
+        (k2, 94, "forward, serving shape; launches: serving (phases 4, 13, 16)", timings[k2], serve_shape,
+         launches[k2] + obs["serve"]["K2"] + packed["K2"], err[k2]),
         (k2, 94, "forward, training shape; launches: training (phase 8), phase 12's 16e synthetic "
          "cells and phase 13, all nine uses", train_timings[k2], TRAIN,
          train_launches[k2] + matrix_launches["16e"]["K2"] + obs["train"]["K2"], train_err[k2]),

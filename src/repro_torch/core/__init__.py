@@ -1,6 +1,8 @@
-"""Routing core of the port: BIP duals, the balancer registry (topk,
-aux_loss, lossfree, bip, phi, lpr, expert_choice), router, dispatch plan,
-the paper's streaming gates (Algorithms 3 and 4) and the LP oracle."""
+"""Routing core of the port: BIP duals (the exact and the bisection forms,
+and the reference's Algorithm 1 gate `bip_route_reference`), the balancer
+registry (topk, aux_loss, lossfree, bip, phi, lpr, expert_choice), router,
+dispatch plan, the paper's streaming gates (Algorithms 3 and 4) and the LP
+oracle."""
 from repro_torch.core.approx import ApproxBIPGate
 from repro_torch.core.balancers import (
     Balancer,
@@ -12,6 +14,17 @@ from repro_torch.core.expert_choice import expert_choice_route, expert_choice_se
 from repro_torch.core.lp_oracle import greedy_balanced_objective, routing_objective, solve_plp
 from repro_torch.core.metrics import BalanceTracker, balance_metrics, expert_load, max_violation
 from repro_torch.core.online import OnlineBIPGate
+from repro_torch.core.ref_bip import (
+    bip_dual_update,
+    bip_dual_update_global,
+    bip_dual_update_masked,
+    bip_dual_update_threshold,
+    bip_route_reference,
+    bip_topk,
+    bisect_rounds,
+    kth_largest,
+    kth_largest_threshold,
+)
 from repro_torch.core.router import (
     DispatchPlan,
     compute_scores,
@@ -29,6 +42,13 @@ __all__ = [
     "RouterConfig",
     "RouterOutput",
     "balance_metrics",
+    "bip_dual_update",
+    "bip_dual_update_global",
+    "bip_dual_update_masked",
+    "bip_dual_update_threshold",
+    "bip_route_reference",
+    "bip_topk",
+    "bisect_rounds",
     "compute_scores",
     "expert_choice_route",
     "expert_choice_select",
@@ -36,6 +56,8 @@ __all__ = [
     "get_balancer",
     "greedy_balanced_objective",
     "init_router_state",
+    "kth_largest",
+    "kth_largest_threshold",
     "make_dispatch_plan",
     "max_violation",
     "register_balancer",

@@ -29,7 +29,7 @@ _REGISTRY: Dict[str, "Balancer"] = {}
 
 _warned: set = set()
 
-_NO_MESH = "multi-device dual sync (axis_names) is not ported yet"
+_NO_MESH = ref_bip.NO_MESH
 
 
 def _warn_once(key: str, msg: str) -> None:

@@ -25,6 +25,8 @@ import torch
 
 Tensor = torch.Tensor
 
+NO_MESH = "multi-device dual sync (axis_names) is not ported yet"
+
 
 def expert_kth_index(n: int, k: int, m: int) -> int:
     """0-based index of the (nk/m + 1)-th largest of n values, or -1 when it
@@ -59,6 +61,26 @@ def bip_dual_update(
         else:
             q = torch.clamp_min(kth_largest(s - p[:, None], cap_idx, dim=0), 0.0)
     return q, p
+
+
+def bip_topk(s: Tensor, q: Tensor, top_k: int) -> Tuple[Tensor, Tensor]:
+    """Top-k experts by corrected scores s - q; gate values are the raw s.
+    Returns (combine_weights (n, k), expert_index (n, k) int32). Ties go to
+    the lower expert index, as lax.top_k's do (a converged dual leaves
+    exact ties at the capacity boundary): a stable descending sort, as
+    balancers.topk_select."""
+    idx = torch.sort(s - q[None, :], dim=-1, descending=True, stable=True).indices[:, :top_k]
+    return torch.gather(s, -1, idx), idx.to(torch.int32)
+
+
+def bip_route_reference(
+    s: Tensor, q0: Tensor, *, top_k: int, n_iters: int
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The whole Algorithm 1 gate: the exact dual update, then the biased
+    top-k. Returns (combine_weights, expert_index, q_new)."""
+    q, _ = bip_dual_update(s, q0, top_k=top_k, n_iters=n_iters)
+    w, idx = bip_topk(s, q, top_k)
+    return w, idx, q
 
 
 def bisect_ladder_depth(fanout: int) -> int:
@@ -243,6 +265,42 @@ def bip_dual_update_global(
     if with_stats:
         return q, p, t
     return q, p
+
+
+def bip_dual_update_threshold(
+    s: Tensor,
+    q0: Tensor,
+    *,
+    top_k: int,
+    n_iters: int,
+    axis_names: tuple = (),
+    n_bisect: int = 26,
+    fanout: int = 1,
+) -> Tuple[Tensor, Tensor]:
+    """The sort-free dual update without a token mask: the reference's
+    historically named alias of `bip_dual_update_global`. Matches
+    `bip_dual_update` up to the bisection's resolution."""
+    if axis_names:
+        raise NotImplementedError(NO_MESH)
+    return bip_dual_update_global(s, q0, top_k=top_k, n_iters=n_iters, n_bisect=n_bisect, fanout=fanout)
+
+
+def bip_dual_update_masked(
+    s: Tensor,
+    q0: Tensor,
+    mask: Tensor,  # (n,) bool; False rows are invisible to the update
+    *,
+    top_k: int,
+    n_iters: int,
+    n_bisect: int = 26,
+    fanout: int = 1,
+) -> Tuple[Tensor, Tensor]:
+    """The dual update over the real rows only (a serving chunk's padding
+    is masked out): the reference's single-device alias of
+    `bip_dual_update_global` with a token mask."""
+    return bip_dual_update_global(
+        s, q0, top_k=top_k, n_iters=n_iters, token_mask=mask, n_bisect=n_bisect, fanout=fanout
+    )
 
 
 def sanitize_duals(q: Tensor, abs_limit: float) -> Tuple[Tensor, Tensor]:

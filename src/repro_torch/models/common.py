@@ -292,6 +292,143 @@ def attention_chunk(
     return out, {"k": k_cache, "v": v_cache, "pos": pos0 + lengths}
 
 
+def _packed_kept(segments: Tensor, write_slots: Tensor, n_rows: int) -> Tensor:
+    """(B, C) bool: the real columns of a packed chunk that name a cache row."""
+    return (segments >= 0) & (write_slots >= 0) & (write_slots < n_rows)
+
+
+def packed_writes(
+    positions: Tensor, segments: Tensor, write_slots: Tensor, n_rows: int, cap: int, ring: bool
+) -> Tuple[Tuple[Tensor, Tensor], Tuple[Tensor, Tensor]]:
+    """Where a packed chunk's K/V land in one kind of layer cache:
+    ((grid rows, grid cols), (cache rows, cache positions)) of every column
+    written. Padding and write_slots < 0 are never written; a global cache
+    drops a position past its end (the reference's out-of-bounds scatter),
+    a ring wraps it. The set is the same for every layer of a kind, so the
+    model builds it once per step: one host sync (the nonzero), not one per
+    layer. Written once each, so index_put_ stays deterministic."""
+    keep = _packed_kept(segments, write_slots, n_rows)
+    if ring:
+        dst_pos = torch.remainder(positions, cap)
+    else:
+        dst_pos = positions
+        keep = keep & (positions < cap)
+    rows, cols = torch.nonzero(keep, as_tuple=True)
+    return (rows, cols), (write_slots[rows, cols], dst_pos[rows, cols])
+
+
+def packed_counts(segments: Tensor, write_slots: Tensor, n_rows: int) -> Tensor:
+    """(n_rows,) tokens each cache row advances by in a packed chunk: its
+    kept columns, counted on the WRITE row (a spread row advances the
+    stream it continues), past-the-end positions included, as the
+    reference counts them."""
+    keep = _packed_kept(segments, write_slots, n_rows)
+    rows = torch.arange(n_rows, device=segments.device)
+    return ((write_slots[..., None] == rows) & keep[..., None]).sum(dim=(0, 1))
+
+
+def _attention_chunk_packed(
+    params: Params,
+    x: Tensor,  # (B, C, d)
+    cache: Dict[str, Tensor],
+    cfg: ModelConfig,
+    *,
+    layer_kind: str,
+    positions: Tensor,  # (B, C) absolute position of every column
+    segments: Tensor,  # (B, C); -1 = padding
+    write_slots: Tensor,  # (B, C) cache row each column writes; -1 drops
+    cache_rows: Optional[Tensor],  # (B,) cache row each ROW reads
+    writes=None,  # packed_writes(...) for this cache, when the caller has it
+    counts: Optional[Tensor] = None,  # packed_counts(...), likewise
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Packed multi-request chunk (the reference's function of this name):
+    rows and cache slots decouple, and every column carries (position,
+    segment, cache row it writes).
+
+    Segment 0 is the row's RESIDENT stream, the continuation of cache row
+    `cache_rows[b]`, attending through the cache as the dense path does.
+    Segments >= 1 are FRESH prompts sharing a row: each attends only its own
+    in-chunk keys (same row, same segment, causal by position), and still
+    writes its K/V into its own slot's row so the next step continues it as
+    a resident. Segment -1 is padding: never written, never attended,
+    output garbage for the caller to mask.
+
+    Global layers write first, then gather `k[cache_rows]`: a spread row
+    (a second row continuing one stream) sees the keys every other row of
+    its stream wrote this chunk. Ring layers gather the PRE-update ring and
+    attend it beside the in-chunk keys, as the dense path; the engine
+    spreads only on all-global stacks. The cache tensors are written in
+    place; 'pos' advances by `packed_counts`.
+    """
+    b, c, _ = x.shape
+    dev = x.device
+    cd = cfg.compute_dtype
+    k_cache, v_cache = cache["k"], cache["v"]
+    n_rows, cap = k_cache.shape[0], k_cache.shape[1]
+    theta = cfg.rope_theta
+    window = 0
+    if layer_kind == "local":
+        window = cfg.window_size
+        if cfg.rope_local_theta:
+            theta = cfg.rope_local_theta
+        if c > cap:
+            raise ValueError(f"chunk {c} must fit the ring buffer (window {cap})")
+    if cache_rows is None:
+        cache_rows = torch.arange(b, device=dev)
+    if writes is None:
+        writes = packed_writes(positions, segments, write_slots, n_rows, cap, ring=window > 0)
+    if counts is None:
+        counts = packed_counts(segments, write_slots, n_rows)
+    valid = segments >= 0
+    q_pos = positions
+
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(cd))
+    k_new = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(cd))
+    v_new = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(cd))
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.rms_norm_eps)
+        k_new = rmsnorm(params["k_norm"], k_new, cfg.rms_norm_eps)
+    q = apply_rope(q, q_pos, theta)
+    k_new = apply_rope(k_new, q_pos, theta)
+
+    (src_rows, src_cols), (dst_rows, dst_pos) = writes
+
+    def write():
+        k_cache[dst_rows, dst_pos] = k_new[src_rows, src_cols].to(k_cache.dtype)
+        v_cache[dst_rows, dst_pos] = v_new[src_rows, src_cols].to(v_cache.dtype)
+
+    resident = segments == 0
+    same_seg = segments[:, None, :] == segments[:, :, None]  # (B, C, C)
+    causal = q_pos[:, None, :] <= q_pos[..., None]  # key column <= query column
+    idx = torch.arange(cap, device=dev)[None, :]  # (1, cap)
+    pos0 = cache["pos"]
+    if window > 0:
+        prev = pos0[cache_rows] - 1  # latest position already in the read row's ring
+        k_pos = prev[:, None] - torch.remainder(prev[:, None] - idx, cap)  # (B, cap)
+        cache_ok = (
+            (k_pos >= 0)[:, None, :]
+            & (k_pos[:, None, :] <= q_pos[..., None])
+            & (k_pos[:, None, :] > q_pos[..., None] - window)
+            & resident[..., None]
+        )
+        chunk_ok = same_seg & causal & (q_pos[:, None, :] > q_pos[..., None] - window) & valid[:, None, :]
+        k_att = torch.cat([k_cache[cache_rows].to(cd), k_new], dim=1)  # gathered before the write
+        v_att = torch.cat([v_cache[cache_rows].to(cd), v_new], dim=1)
+        write()
+    else:
+        write()
+        cache_ok = (idx[:, None, :] <= q_pos[..., None]) & resident[..., None]
+        fresh = segments >= 1
+        chunk_ok = same_seg & causal & valid[:, None, :] & fresh[..., None]
+        k_att = torch.cat([k_cache[cache_rows].to(cd), k_new], dim=1)  # gathered after the write
+        v_att = torch.cat([v_cache[cache_rows].to(cd), v_new], dim=1)
+    mask = (torch.cat([cache_ok, chunk_ok], dim=-1) & valid[..., None])[:, None]  # (B, 1, C, cap+C)
+
+    y = _attend(q, k_att, v_att, mask, cfg.attn_logit_softcap, cd)
+    out = torch.einsum("bshk,hkd->bsd", y, params["wo"].to(cd))
+    return out, {"k": k_cache, "v": v_cache, "pos": pos0 + counts}
+
+
 def init_attention_cache(
     cfg: ModelConfig, batch: int, seq_len: int, layer_kind: str, dtype, device
 ) -> Dict[str, Tensor]:

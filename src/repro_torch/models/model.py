@@ -27,8 +27,9 @@ reference scans stacked groups). A layer's cache holds 'k', 'v', 'pos'
 depth). The cache is updated in place: each step writes its rows into the
 slot tensors instead of copying the cache. As in the reference, serving
 embeds tokens only (the vlm patch prefix reaches `forward` alone) and the
-slot cache refuses encdec. The packed multi-request prefill (`segments=`
-of `prefill_chunk`) is not ported and raises NotImplementedError.
+slot cache refuses encdec. `prefill_chunk(..., positions=, segments=,
+write_slots=, cache_rows=)` takes the packed multi-request layout
+(common._attention_chunk_packed) on attention-only stacks.
 """
 from __future__ import annotations
 
@@ -244,20 +245,30 @@ class Model:
         return cache
 
     def _apply_layer_chunk(self, p, x, cfg, mixer_kind, ffn_kind, cache, router_state, lengths,
-                           shared):
-        """One layer over a (B, C) token chunk against its cache. Returns
-        (x, new_cache, new_router_state, load) with load the per-expert
-        dispatch counts of this layer's real tokens, or None."""
+                           shared, packed=None):
+        """One layer over a (B, C) token chunk against its cache. `packed`
+        (from `_packed_operands`) switches attention to the packed layout;
+        column validity then comes from segments >= 0. Returns (x,
+        new_cache, new_router_state, load) with load the per-expert dispatch
+        counts of this layer's real tokens, or None."""
         valid = None
-        if lengths is not None:
+        if packed is not None:
+            valid = packed["segments"] >= 0
+        elif lengths is not None:
             valid = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
         new_cache = dict(cache)
         if mixer_kind in ("global", "local"):
-            h, attn_cache = common.attention_chunk(
-                p["attn"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps),
-                {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}, cfg,
-                layer_kind=mixer_kind, lengths=lengths,
-            )
+            xn = common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps)
+            kv = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}
+            if packed is None:
+                h, attn_cache = common.attention_chunk(
+                    p["attn"], xn, kv, cfg, layer_kind=mixer_kind, lengths=lengths
+                )
+            else:
+                h, attn_cache = common._attention_chunk_packed(
+                    p["attn"], xn, kv, cfg, layer_kind=mixer_kind,
+                    **dict(packed, writes=packed["writes"][mixer_kind]),
+                )
             new_cache.update(attn_cache)
             x = x + stack._maybe_post(p, "post_attn_norm", h, cfg)
             if "ck" in cache:
@@ -324,18 +335,31 @@ class Model:
         router_states: list,
         lengths: Optional[Tensor] = None,  # (B,) valid counts; None = all C
         *,
-        segments: Optional[Tensor] = None,
-        **packed,
+        positions: Optional[Tensor] = None,  # (B, C) packed layout: absolute positions
+        segments: Optional[Tensor] = None,  # (B, C); -1 = padding
+        write_slots: Optional[Tensor] = None,  # (B, C) cache row each column writes
+        cache_rows: Optional[Tensor] = None,  # (B,) cache row each row reads
     ) -> Tuple[Tensor, Params, list, Dict[str, Tensor]]:
         """Advance every slot by up to C tokens in one step: prefilling slots
         carry their next <=C prompt tokens, decoding slots 1 sampled token,
         idle slots 0. Returns (logits (B, C, vocab) fp32, cache, router
         states, metrics) with metrics['moe_load'] the per-expert dispatch
         counts of real tokens summed over MoE layers and metrics['max_vio']
-        the worst per-layer violation. Padded logit columns are garbage."""
-        if segments is not None or packed:
-            raise NotImplementedError("packed multi-request prefill is not ported yet")
+        the worst per-layer violation. Padded logit columns are garbage.
+
+        Passing `segments` switches attention to the PACKED layout
+        (common._attention_chunk_packed): rows and cache slots decouple and
+        every column carries (position, segment, write slot); `lengths` is
+        ignored. Attention-only stacks only (ValueError otherwise): SSM and
+        conv state advance strictly left to right per row and cannot host
+        interleaved streams."""
         cfg = self.cfg
+        packed = None
+        if segments is not None:
+            bad = {k for k, _ in cfg.layer_kinds() if k.replace("+shared", "") not in ("global", "local")}
+            if bad:
+                raise ValueError(f"packed prefill: attention-only stacks required, got {sorted(bad)}")
+            packed = self._packed_operands(cache, positions, segments, write_slots, cache_rows)
         x = common.embed(params["embed"], tokens, cfg)
         shared = params["stack"].get("shared")
         m_load = cfg.routing.n_experts if cfg.is_moe else 1
@@ -345,7 +369,7 @@ class Model:
         for (mixer, ffn), p, c, st in zip(
             cfg.layer_kinds(), params["stack"]["layers"], cache["layers"], router_states
         ):
-            x, nc, st, ld = self._apply_layer_chunk(p, x, cfg, mixer, ffn, c, st, lengths, shared)
+            x, nc, st, ld = self._apply_layer_chunk(p, x, cfg, mixer, ffn, c, st, lengths, shared, packed)
             new_layers.append(nc)
             new_states.append(st)
             load_total, vio_max = _merge_load(load_total, vio_max, ld, m_load)
@@ -353,6 +377,24 @@ class Model:
         logits = common.unembed(params["embed"], x, cfg)
         mets = {"moe_load": load_total, "max_vio": vio_max}
         return logits, {"layers": new_layers}, new_states, mets
+
+    def _packed_operands(self, cache, positions, segments, write_slots, cache_rows):
+        """The packed operands of one step, with what every layer shares
+        computed once: the write set of each layer kind (global caches and
+        rings differ in length) and each cache row's advance."""
+        layers = cache["layers"]
+        n_rows = layers[0]["k"].shape[0]
+        if cache_rows is None:
+            cache_rows = torch.arange(segments.shape[0], device=segments.device)
+        writes = {}
+        for (mixer, _), c in zip(self.cfg.layer_kinds(), layers):
+            if mixer not in writes:
+                writes[mixer] = common.packed_writes(
+                    positions, segments, write_slots, n_rows, c["k"].shape[1], ring=mixer == "local"
+                )
+        return {"positions": positions, "segments": segments, "write_slots": write_slots,
+                "cache_rows": cache_rows, "writes": writes,
+                "counts": common.packed_counts(segments, write_slots, n_rows)}
 
     def decode_step(self, params, tokens, cache, router_states):
         """One token for every sequence in the batch (prefill_chunk, C=1)."""

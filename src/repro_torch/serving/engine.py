@@ -7,10 +7,13 @@ chunk, decoding slots their last sampled token, idle slots are masked out.
 Per-slot cache positions let sequences at different offsets coexist, and
 the BIP router's dual vector q threads through every step.
 
-One row per slot: a prompt longer than a chunk prefills chunk by chunk, as
-the reference engine does whenever its packed layout would not cut the
-step count. The packed layout itself and the device mesh are not ported
-yet.
+PACKED prefill decouples batch rows from cache slots, as the reference's
+engine does: when a prompt has more than a chunk left and rows would idle,
+its next chunks SPREAD across the free rows (all-global stacks only:
+write-then-attend makes this exact), and short fresh prompts tuck into
+other rows' padding columns as extra segments to free more rows. The
+packed step runs only when it spreads; otherwise the one-row-per-slot
+step runs unchanged. The device mesh is not ported yet.
 
 `greedy_generate` is the reference's batched greedy decoding: through the
 engine for the token families, through the per-token path
@@ -31,6 +34,8 @@ from repro_torch.models.model import Model
 from repro_torch.serving.scheduler import DECODE, PREFILL, Request, Scheduler
 from repro_torch.telemetry.slo import ServingTelemetry
 from repro_torch.telemetry.trace import Profiler, trace_span
+
+Tensor = torch.Tensor
 
 
 class ContinuousBatchingEngine:
@@ -99,6 +104,13 @@ class ContinuousBatchingEngine:
         )
         self.cache = model.init_slot_cache(params, n_slots, max_seq_len)
         self.router_states = model.init_router_states()
+        # packed-prefill gates: packing needs segment-aware attention on
+        # every layer (no SSM/conv state, which advances strictly left to
+        # right per row); spreading one stream across rows also needs the
+        # write-then-attend cache on every layer (no sliding-window rings)
+        kinds = [k.replace("+shared", "") for k, _ in cfg.layer_kinds()]
+        self._can_pack = all(k in ("global", "local") for k in kinds)
+        self._can_spread = self._can_pack and all(k == "global" for k in kinds)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.telemetry = ServingTelemetry(
             cfg.routing.n_experts if cfg.is_moe else 1, sink=sink
@@ -177,6 +189,16 @@ class ContinuousBatchingEngine:
         self.telemetry.on_finish(req, len(req.output))
         return req
 
+    def _sample(self, last: Tensor, mets):
+        """Next token per row of `last` (n, vocab), greedy or through the
+        engine's generator, and the step's metrics, on the host."""
+        if self.temperature > 0.0:
+            probs = torch.softmax(last / self.temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        else:
+            nxt = torch.argmax(last, dim=-1)
+        return nxt.cpu().numpy(), {k: v.cpu().numpy() for k, v in mets.items()}
+
     @torch.no_grad()
     def _serve_step(self, tokens: np.ndarray, lengths: np.ndarray):
         """One model step over the (n_slots, chunk) grid; returns the next
@@ -189,13 +211,145 @@ class ContinuousBatchingEngine:
             self.params, tok, self.cache, self.router_states, lens
         )
         idx = torch.clamp_min(lens - 1, 0)
-        last = logits[torch.arange(logits.shape[0], device=dev), idx]
-        if self.temperature > 0.0:
-            probs = torch.softmax(last / self.temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
-        else:
-            nxt = torch.argmax(last, dim=-1)
-        return nxt.cpu().numpy(), {k: v.cpu().numpy() for k, v in mets.items()}
+        return self._sample(logits[torch.arange(logits.shape[0], device=dev), idx], mets)
+
+    @torch.no_grad()
+    def _serve_step_packed(self, tokens, positions, segments, write_slots, cache_rows,
+                           gather_rows, gather_cols):
+        """One model step in the packed layout (operands from
+        `_plan_packed`, sent to the device in one copy); each SLOT samples
+        at (gather_rows, gather_cols), its last real column in the grid."""
+        arrays = (tokens, positions, segments, write_slots, cache_rows, gather_rows, gather_cols)
+        flat = torch.from_numpy(np.concatenate([np.ravel(a) for a in arrays]).astype(np.int64))
+        dev_flat = flat.to(self.device)
+        (tok, pos, seg, ws, rows, g_rows, g_cols) = (
+            t.view(a.shape) for t, a in zip(dev_flat.split([a.size for a in arrays]), arrays)
+        )
+        logits, self.cache, self.router_states, mets = self.model.prefill_chunk(
+            self.params, tok, self.cache, self.router_states,
+            positions=pos, segments=seg, write_slots=ws, cache_rows=rows,
+        )
+        return self._sample(logits[g_rows, g_cols], mets)
+
+    def _plan_packed(self, active):
+        """Packed-layout step plan (the reference engine's planner), or None
+        when the one-row-per-slot layout is already step-optimal.
+
+        Packing pays only when some prompt has more than `chunk_size` tokens
+        left: its next chunks then SPREAD across rows that would otherwise
+        idle (all-global stacks only), finishing a k-chunk prefill in
+        ceil(k / n_free_rows) steps instead of k. Short fresh prompts are
+        tucked into used rows' free columns as extra segments, vacating
+        their rows for spreading. Returns the operand arrays of
+        `_serve_step_packed` plus the bookkeeping plan; None whenever no
+        row would spread, so steady-state decode keeps the one-row step."""
+        b, c = self.n_slots, self.chunk_size
+        if not self._can_spread:
+            return None
+        if not any(
+            not slot.prompt_done and len(slot.request.prompt) - slot.n_prefilled > c
+            for _, slot in active
+        ):
+            return None
+
+        tokens = np.zeros((b, c), np.int64)
+        positions = np.zeros((b, c), np.int64)
+        segments = np.full((b, c), -1, np.int64)
+        write_slots = np.full((b, c), -1, np.int64)
+        cache_rows = np.arange(b, dtype=np.int64)
+        gather_rows = np.zeros((b,), np.int64)
+        gather_cols = np.zeros((b,), np.int64)
+        col_used = np.zeros((b,), np.int64)
+        next_seg = np.ones((b,), np.int64)
+        row_taken = [False] * b
+        plan: List[tuple] = []
+
+        decodes, shorts, streams = [], [], []
+        for i, slot in active:
+            if slot.prompt_done:
+                decodes.append((i, slot))
+            elif slot.n_prefilled == 0 and len(slot.request.prompt) < c:
+                shorts.append((i, slot))
+            else:
+                streams.append((i, slot))
+
+        for i, slot in decodes:
+            tokens[i, 0] = slot.request.output[-1]
+            positions[i, 0] = slot.pos - 1  # == cache pos of slot i
+            segments[i, 0] = 0
+            write_slots[i, 0] = i
+            col_used[i] = 1
+            row_taken[i] = True
+            gather_rows[i], gather_cols[i] = i, 0
+            plan.append((i, slot, DECODE, 1))
+
+        # prefill streams: first chunk in the slot's own row as the resident
+        # (segment 0) continuation of its cache
+        rem: Dict[int, int] = {}
+        last_at: Dict[int, tuple] = {}
+        stream_slot = dict(streams)
+        for i, slot in streams:
+            p0 = slot.n_prefilled
+            n = min(len(slot.request.prompt) - p0, c)
+            tokens[i, :n] = slot.request.prompt[p0 : p0 + n]
+            positions[i, :n] = np.arange(p0, p0 + n)
+            segments[i, :n] = 0
+            write_slots[i, :n] = i
+            col_used[i] = n
+            row_taken[i] = True
+            rem[i] = len(slot.request.prompt) - p0 - n
+            last_at[i] = (i, n - 1, n)  # (row, col, placed so far)
+
+        # short fresh prompts: best fit into a used row's padding columns as
+        # a fresh segment (frees their own row for spreading below)
+        for i, slot in sorted(shorts, key=lambda t: -len(t[1].request.prompt)):
+            n = len(slot.request.prompt)
+            fit = [r for r in range(b) if row_taken[r] and col_used[r] + n <= c]
+            r = min(fit, key=lambda r: c - col_used[r] - n) if fit else i
+            s = int(next_seg[r])
+            row_taken[r] = True
+            lo = col_used[r]
+            tokens[r, lo : lo + n] = slot.request.prompt
+            positions[r, lo : lo + n] = np.arange(n)
+            segments[r, lo : lo + n] = s
+            write_slots[r, lo : lo + n] = i
+            next_seg[r] = s + 1
+            col_used[r] = lo + n
+            gather_rows[i], gather_cols[i] = r, lo + n - 1
+            plan.append((i, slot, PREFILL, n))
+
+        # spread: hand free rows to the streams with the most prompt left
+        used_extra = False
+        for r in [r for r in range(b) if not row_taken[r]]:
+            if not rem:
+                break
+            i = max(rem, key=rem.get)
+            if rem[i] <= 0:
+                break
+            slot = stream_slot[i]
+            p0 = slot.n_prefilled + last_at[i][2]
+            n = min(rem[i], c)
+            tokens[r, :n] = slot.request.prompt[p0 : p0 + n]
+            positions[r, :n] = np.arange(p0, p0 + n)
+            segments[r, :n] = 0
+            cache_rows[r] = i  # this row CONTINUES slot i's stream
+            write_slots[r, :n] = i
+            col_used[r] = n
+            row_taken[r] = True
+            rem[i] -= n
+            last_at[i] = (r, n - 1, last_at[i][2] + n)
+            used_extra = True
+
+        if not used_extra:
+            return None  # nothing spread: the one-row layout is the same
+        for i, slot in streams:
+            r, col, placed = last_at[i]
+            gather_rows[i], gather_cols[i] = r, col
+            plan.append((i, slot, PREFILL, placed))
+        return (
+            tokens, positions, segments, write_slots, cache_rows,
+            gather_rows, gather_cols, plan,
+        )
 
     def step(self) -> List[Request]:
         """One fused serve step. Returns requests completed this step —
@@ -218,22 +372,28 @@ class ContinuousBatchingEngine:
         if not active:
             return dropped
 
-        tokens = np.zeros((b, c), np.int64)
-        lengths = np.zeros((b,), np.int64)
-        plan = []  # (slot_idx, slot, kind, n_tokens)
-        for i, slot in active:
-            req = slot.request
-            if not slot.prompt_done:
-                chunk = req.prompt[slot.n_prefilled : slot.n_prefilled + c]
-                tokens[i, : len(chunk)] = chunk
-                lengths[i] = len(chunk)
-                plan.append((i, slot, PREFILL, len(chunk)))
-            else:
-                tokens[i, 0] = req.output[-1]
-                lengths[i] = 1
-                plan.append((i, slot, DECODE, 1))
-        with trace_span("serve/step"):
-            nxt, mets = self._serve_step(tokens, lengths)
+        packed = self._plan_packed(active) if self._can_pack else None
+        if packed is not None:
+            *operands, plan = packed
+            with trace_span("serve/step"):
+                nxt, mets = self._serve_step_packed(*operands)
+        else:
+            tokens = np.zeros((b, c), np.int64)
+            lengths = np.zeros((b,), np.int64)
+            plan = []  # (slot_idx, slot, kind, n_tokens)
+            for i, slot in active:
+                req = slot.request
+                if not slot.prompt_done:
+                    chunk = req.prompt[slot.n_prefilled : slot.n_prefilled + c]
+                    tokens[i, : len(chunk)] = chunk
+                    lengths[i] = len(chunk)
+                    plan.append((i, slot, PREFILL, len(chunk)))
+                else:
+                    tokens[i, 0] = req.output[-1]
+                    lengths[i] = 1
+                    plan.append((i, slot, DECODE, 1))
+            with trace_span("serve/step"):
+                nxt, mets = self._serve_step(tokens, lengths)
         self.telemetry.on_step(
             mets,
             n_prefill=sum(n for _, _, kind, n in plan if kind == PREFILL),

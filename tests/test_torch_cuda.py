@@ -4,7 +4,7 @@ to the card, the checkpoint's on-device snapshot, and the phi / lpr /
 expert_choice balancers (expert-choice's sentinel slots included), the
 training telemetry ring and profiler window, and the other families'
 pieces (the chunked SSD, K1/K2 at llama4-scout's serving shape, a served
-zamba2). Needs an NVIDIA GPU and
+zamba2), and the packed multi-request prefill through K1/K2. Needs an NVIDIA GPU and
 nvcc; skips elsewhere. Imports no JAX, so it runs where only the port is
 installed:
 
@@ -735,3 +735,49 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def test_packed_prefill_launches_the_kernels(cuda_device):
+    """Two packed steps (a stream spread over a second row, two fresh
+    prompts sharing a row, then decodes) of reduced minimind-moe-16e with
+    the full 16e / top-4 table, top-k routing and use_kernel=True, fp32:
+    the card's logits on real columns and MoE load against the CPU port's
+    on the same params (1e-4), with K1 and K2 launched once per MoE layer
+    per step."""
+    full = configs.get("minimind_moe_16e")
+    cfg = configs.reduced_for_smoke(
+        "minimind_moe_16e", vocab_size=128,
+        routing=dataclasses.replace(full.routing, strategy="topk", use_kernel=True),
+    )
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device=cuda_device)
+    params = cpu.init(0)
+    gparams = _to(params, cuda_device)
+    caches = [m.init_slot_cache(p, 4, 32) for m, p in ((cpu, params), (gpu, gparams))]
+    states = [cpu.init_router_states(), gpu.init_router_states()]
+    rng = np.random.default_rng(0)
+    # (row, col, first position, n, segment, slot written, cache row read)
+    steps = [[(0, 0, 0, 8, 0, 0, 0), (1, 0, 8, 6, 0, 0, 0), (2, 0, 0, 3, 1, 2, 2), (2, 3, 0, 4, 2, 3, 2)],
+             [(0, 0, 14, 8, 0, 0, 0), (1, 0, 22, 6, 0, 0, 0), (2, 0, 3, 1, 0, 2, 2), (3, 0, 4, 1, 0, 3, 3)]]
+    moe_gemm.reset_launch_counts()
+    for runs in steps:
+        pos = torch.full((4, 8), 7)
+        seg, ws = torch.full((4, 8), -1), torch.full((4, 8), -1)
+        rows = torch.arange(4)
+        for r, c0, p0, n, s, slot, reads in runs:
+            pos[r, c0:c0 + n] = torch.arange(p0, p0 + n)
+            seg[r, c0:c0 + n], ws[r, c0:c0 + n], rows[r] = s, slot, reads
+        tok = torch.as_tensor(rng.integers(0, 128, (4, 8)))
+        outs = []
+        for i, (m, p) in enumerate(((cpu, params), (gpu, gparams))):
+            packed = {k: t.to(m.device) for k, t in
+                      (("positions", pos), ("segments", seg), ("write_slots", ws), ("cache_rows", rows))}
+            with torch.no_grad():
+                logits, caches[i], states[i], mets = m.prefill_chunk(p, tok.to(m.device), caches[i], states[i],
+                                                                     **packed)
+            outs.append((logits.cpu(), mets["moe_load"].cpu()))
+        valid = seg >= 0
+        torch.testing.assert_close(outs[1][0][valid], outs[0][0][valid], rtol=1e-4, atol=1e-4)
+        assert torch.equal(outs[1][1], outs[0][1])
+    torch.cuda.synchronize()
+    assert moe_gemm.grouped_gated_ffn_in.launches == cfg.n_layers * len(steps)
+    assert moe_gemm.grouped_matmul.launches == cfg.n_layers * len(steps)

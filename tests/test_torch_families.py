@@ -361,11 +361,12 @@ def test_slot_cache_refuses_encdec_and_packed_prefill():
 
     with pytest.raises(ValueError, match="encdec"):
         ContinuousBatchingEngine(tm, tp, n_slots=2, chunk_size=4, max_seq_len=16)
-    _, _, tz, pz = _built("zamba2_7b")
     tok = torch.zeros((2, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="packed"):
-        tz.prefill_chunk(pz, tok, tz.init_slot_cache(pz, 2, 16), tz.init_router_states(),
-                         segments=torch.zeros_like(tok))
+    for arch in ("mamba2_130m", "zamba2_7b"):  # packed operands need an attention-only stack
+        _, _, tz, pz = _built(arch)
+        with pytest.raises(ValueError, match="attention-only"):
+            tz.prefill_chunk(pz, tok, tz.init_slot_cache(pz, 2, 16), tz.init_router_states(),
+                             positions=tok, segments=tok, write_slots=tok, cache_rows=torch.arange(2))
     with pytest.raises(ValueError, match="mamba recurrence"):
         tz.forward(pz, {"tokens": tok, "segments": torch.zeros_like(tok)}, tz.init_router_states())
 

@@ -225,3 +225,48 @@ def test_unmasked_kernel_dual_update_raises():
     assert out.expert_index.shape == (8, 4)
     out = router.route(logits, {"q": torch.zeros(16)}, tc, token_mask=torch.ones(8, dtype=torch.bool))
     assert out.expert_index.shape == (8, 4)
+
+
+@pytest.mark.parametrize("name", ["bip_topk", "bip_route_reference", "bip_dual_update_threshold",
+                                  "bip_dual_update_masked"])
+def test_public_bip_entry_points_match_reference(name):
+    """The four names `repro.core` exports beside the duals above, through
+    the port's `repro_torch.core`: expert indices bitwise (the converged
+    dual leaves exact ties at the capacity boundary, which both break
+    toward the lower index), gate weights and duals within the bisection's
+    resolution
+    (2^-26 of the score range: both packages bisect bit for bit), and the
+    bisection forms within 3e-5 of the exact sort dual, the reference's
+    own bound (tests/test_core_router.py)."""
+    import repro.core as jax_core
+    import repro_torch.core as core
+
+    n, m, k = 192, 16, 4
+    rng = np.random.default_rng(11)
+    s = _scores(n, m, seed=11)
+    q0 = (rng.random(m) * 0.05).astype(np.float32)
+    mask = rng.random(n) < 0.6
+    js, jq0, ts, tq0 = jnp.asarray(s), jnp.asarray(q0), torch.from_numpy(s), torch.from_numpy(q0)
+    kw = dict(top_k=k, n_iters=4)
+    res = 2.0**-26
+    if name == "bip_topk":
+        (wj, ij), (wt, it) = jax_core.bip_topk(js, jq0, k), core.bip_topk(ts, tq0, k)
+    elif name == "bip_route_reference":
+        wj, ij, qj = jax_core.bip_route_reference(js, jq0, **kw)
+        wt, it, qt = core.bip_route_reference(ts, tq0, **kw)
+        np.testing.assert_allclose(qt.numpy(), np.asarray(qj), atol=res)
+    else:
+        masked = name == "bip_dual_update_masked"
+        args = (mask,) if masked else ()
+        qj, _ = getattr(jax_core, name)(js, jq0, *map(jnp.asarray, args), **kw)
+        qt, _ = getattr(core, name)(ts, tq0, *map(torch.from_numpy, args), **kw)
+        np.testing.assert_allclose(qt.numpy(), np.asarray(qj), atol=res)
+        exact, _ = core.bip_dual_update(ts[torch.from_numpy(mask)] if masked else ts, tq0, **kw)
+        np.testing.assert_allclose(qt.numpy(), exact.numpy(), atol=3e-5)
+        if not masked:
+            with pytest.raises(NotImplementedError, match="axis_names"):
+                core.bip_dual_update_threshold(ts, tq0, axis_names=("data",), **kw)
+        return
+    assert it.dtype == torch.int32
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(wt.numpy(), np.asarray(wj), atol=res)
