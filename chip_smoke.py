@@ -190,19 +190,48 @@ Phases, in order; any failure raises and the script exits non-zero:
      logits within relative L2 PACKED_FP32_TOL between the schedules; in
      bf16 the share of equal tokens is printed. Phase 4's prompts of
      16-96 tokens pack wherever rows are free, too.
+ 17. expert-parallel training on a torch.distributed mesh, minimind-moe-16e
+     and 64e at full width, bip sync='global' with K3's collective form
+     (capacity factor MESH_CAPACITY_FACTOR): (a) world size 1 over NCCL on
+     a 1x1 mesh through `ep`: 3 steps of train_loop(mesh=) with exactly
+     8 / 72 / 64 / 0 K1 / K2 / single-pass K3 / fused K3 launches per step,
+     then 3 steps each against the single-device step (fused K3) on the
+     same state and batch: q bit-equal per layer, loss and params within
+     fp32 rounding; K3's single pass timed at the shapes the phase runs
+     (device time from phase 6's trace); (b) four spawned ranks sharing
+     the card, mesh 2x2 over gloo with CUDA tensors: which collectives
+     gloo takes on CUDA tensors (the ones the path uses must be), K3's
+     collective form bit-equal to the fused kernel at the 16e and 64e
+     layer shapes and one psum of its counts timed, then 3 steps of 16e
+     and 64e through `ep` and `ep2ds` in bf16 and three fp32-compute
+     controls (MESH_CONTROLS) against the single-device runs: every rank
+     the same loss, exact launches per step on every rank; bf16: the loss
+     within MESH_BF16_LOSS_RTOL; fp32: at every step the loss, q and MaxVio
+     gaps within MESH_NUDGE_FACTOR of one device's own under a one-ulp
+     nudge of its init, and
+     after the first step the whole params, Adam first moment and grad norm
+     within MESH_STEP0_TOL of one device's, a bound that a step with twice
+     the loss and one on half the batch, run as witnesses, each break;
+     step p50, peak memory per rank, and one profiled step with the host
+     time inside the collective calls. The K1/K2 operand shapes of (b) are
+     checked and timed in phase 7's trace.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
-that outlives it (nvcc and nvidia-smi run to completion).
+that outlives it (nvcc and nvidia-smi run to completion; phase 17's ranks
+are joined, or killed at MESH_DEADLINE_S).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -537,10 +566,10 @@ def k3_update_bound(n, m, k, n_iters, refine, n_bins):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def dual_inputs(torch, n, m, gen, warm):
-    logits = torch.randn(n, m, device="cuda", generator=gen) + 1.5 * torch.linspace(2, -2, m, device="cuda")
+def dual_inputs(torch, n, m, gen, warm, device="cuda"):
+    logits = torch.randn(n, m, device=device, generator=gen) + 1.5 * torch.linspace(2, -2, m, device=device)
     s = torch.softmax(logits, dim=-1)
-    q0 = torch.rand(m, device="cuda", generator=gen) * 0.3 if warm else torch.zeros(m, device="cuda")
+    q0 = torch.rand(m, device=device, generator=gen) * 0.3 if warm else torch.zeros(m, device=device)
     return s, q0
 
 
@@ -575,8 +604,9 @@ def check_k3(torch, bip_admm, kernel_ops, ref_bip, gen):
     """K3's fused dual update against the plain torch loop (bit-equal, one
     launch per call) and the exact sort-based dual at DUAL_CASES; its
     single-pass mode (p and counts bit-equal) at K3_CASES; then its times
-    at the 16e and 64e training shapes. Returns the max abs error seen and
-    the timings by shape."""
+    at the 16e and 64e training shapes, and the single pass at
+    K3_PASS_SHAPES. Returns the max abs error seen, the timings by shape
+    and the single pass's device ms by (n, m, k)."""
     from repro_torch.core.ref_bip import expert_kth_index
 
     max_err = 0.0
@@ -638,6 +668,10 @@ def check_k3(torch, bip_admm, kernel_ops, ref_bip, gen):
             calls[label, t_, r_] = lambda s=s, q0=q0, k=k, t_=t_, r_=r_: kernel_ops.bip_dual_update(
                 s, q0, top_k=k, n_iters=t_, refine=r_)
         calls[label, "pass"] = lambda s=s, q0=q0, k=k: bip_admm.bip_admm_iteration(s, q0, top_k=k)
+    for n, m, k in K3_PASS_SHAPES:  # the single passes of phase 17's collective form
+        s, q0 = dual_inputs(torch, n, m, gen, True)
+        calls["collective", n, m, k] = lambda s=s, q0=q0, k=k: bip_admm.bip_admm_iteration(
+            s, q0, top_k=k, n_bins=N_BINS)
     dev = k3_device_ms(torch, calls)
     for label, (n, m, k, n_iters) in DUAL_TIMED.items():
         s, q0 = inputs[label]
@@ -662,7 +696,8 @@ def check_k3(torch, bip_admm, kernel_ops, ref_bip, gen):
               f"{dev[label, 2, 1]:.4f} ms: one iteration's p and coarse pass {per_iter:.4f} ms, one refine "
               f"pass {per_refine:.4f} ms, launch, staging and the first barrier "
               f"{dev[label, 1, 0] - per_iter:.4f} ms")
-    return max_err, timings
+    pass_ms = {shape: dev[("collective",) + shape] for shape in K3_PASS_SHAPES}
+    return max_err, timings, pass_ms
 
 
 def check_ffn_backward(torch, moe_gemm, kernel_ops, dtype_name, gen, shape=TRAIN):
@@ -2202,6 +2237,626 @@ def packed_serving(torch, configs, mods):
     return out
 
 
+# ------------------------------------------------------------------ phase 17
+MESH_ARCHS = ("minimind_moe_16e", "minimind_moe_64e")
+MESH_IMPLS = ("ep", "ep2ds")  # the gather-weights path and the reference's 'auto'
+# fp32-compute controls of 17(b), MESH_STEPS steps each: in bf16 the
+# model-axis psum of the combined outputs (and ep2ds's reduce-scatter of
+# the f halves) adds bf16 partials, so the trunk after the first MoE layer
+# parts from one device by bf16 roundings; in fp32 the mesh must track one
+# device within the reference's own loop bounds below
+MESH_CONTROLS = (("minimind_moe_16e", "ep"), ("minimind_moe_16e", "ep2ds"), ("minimind_moe_64e", "ep2ds"))
+MESH_SHAPE = (2, 2)  # (data, model): four ranks sharing the card over gloo
+MESH_STEPS = 3
+MESH_DEADLINE_S = 900  # the four ranks together; ranks stuck in a collective are killed
+# the bf16 runs' loss against one device, relative, every step: set from
+# their readings (at most 1.4e-3 in the first runs of this phase), with room
+# for the bf16 roundings the trunk accumulates
+MESH_BF16_LOSS_RTOL = 5e-3
+# the fp32 controls over their MESH_STEPS steps: BIP is LP-degenerate, so
+# a capacity-marginal token whose two experts score alike flips between
+# them on any change of summation order, and Adam's first step (about
+# lr x sign(g)) carries the flips into the params, so the trajectories
+# part step by step. How far rounding alone takes them is measured on one
+# device: the same run from an init nudged by one ulp (single_reference's
+# `nudge`). Over the run, the mesh's largest loss gap, q gap and worst
+# layer's MaxVio gap, and its mean MaxVio gap, must stay within
+# MESH_NUDGE_FACTOR times the nudged run's (plus MESH_NUDGE_FLOOR); step
+# by step the two part by ratios of 0.1-10 (chaos). At full width
+# the reference anchor's own loop bounds (loss and q 5e-3, MaxVio 8 load
+# quanta; tests/test_torch_train_mesh.py holds the port to them on the CPU
+# at the anchor's reduced size) are reached by the nudged run itself
+MESH_NUDGE_FACTOR = 4.0
+MESH_NUDGE_FLOOR = {"loss": 1e-5, "q": 1e-5, "vio_max": 1 / 1024, "vio_mean": 1 / 1024}  # 1 / 1024: one token at 64e
+# after the first step of each fp32 control, the mesh's whole params, Adam
+# first moment ((1 - b1) x the clipped gradient) and grad norm against one
+# device's on the same state and batch, as relative gaps: |grad norm|, the
+# first moment's L2 and the update's L2 (params after minus before). A few
+# flipped marginal tokens move the gradient by ~1e-3; a gradient twice as
+# large moves the grad norm by 1, one of half the batch moves the gradient
+# by tens of percent. Both of those are run on one device as witnesses and
+# must each fail one of these bounds
+MESH_STEP0_TOL = {"grad_norm": 1e-3, "grad": 2e-2, "update": 0.1}
+# no token dropped at the rank's capacity (ep, ep2ds) nor at the whole
+# batch's (one device), so the comparison isolates the sharding; the
+# reference's mesh anchors use 4 and 8 for the same reason
+MESH_CAPACITY_FACTOR = 2.0
+K3_LAYER_SHAPES = ((8192, 16, 4, 4), (8192, 64, 8, 14))  # the whole batch's (n, m, k, T), 16e and 64e
+# (n, m, k) of K3's collective form: 17(a)'s one rank, then a rank of the
+# 2x2 mesh (n over the data ranks), 16e and 64e
+K3_PASS_SHAPES = ((8192, 16, 4),) + tuple((n // MESH_SHAPE[0], m, k) for n, m, k, _ in K3_LAYER_SHAPES)
+MESH_FFN_LAYOUT = {  # one rank's expert FFN operands on the 2x2 mesh, per EP path
+    "ep": "E = m / 2 experts, C the rank's own capacity, F whole: f gathered over the data ranks",
+    "ep2ds": "E = m / 2 experts, C the two data ranks' capacity buffers gathered, F = f / 2 as stored",
+}
+# what the mesh path asks of gloo on CUDA tensors (distributed.collectives)
+GLOO_USED = ("all_reduce sum float32", "all_reduce sum int64", "all_reduce min", "all_reduce max",
+             "all_gather_into_tensor", "reduce_scatter_tensor")
+
+
+def mesh_cfg(configs, arch, impl, fp32=False):
+    """Full-width config of the mesh runs: bip with sync='global' and K3 on
+    (its collective form on a mesh), through the EP path `impl`, at
+    MESH_CAPACITY_FACTOR; the config's bf16 compute, or fp32 (`fp32`)."""
+    import torch
+
+    cfg = configs.get(arch)
+    cfg = dataclasses.replace(cfg, routing=dataclasses.replace(
+        cfg.routing, sync="global", use_kernel=True, moe_impl=impl, capacity_factor=MESH_CAPACITY_FACTOR))
+    return dataclasses.replace(cfg, compute_dtype=torch.float32) if fp32 else cfg
+
+
+def mesh_runs():
+    """17(b)'s runs: (key, arch, impl, fp32); each takes MESH_STEPS steps,
+    the bf16 runs one profiled step more."""
+    runs = [(a, i, False) for a in MESH_ARCHS for i in MESH_IMPLS] + [(a, i, True) for a, i in MESH_CONTROLS]
+    return [(f"{a}/{i}" + ("/fp32" if f else ""), a, i, f) for a, i, f in runs]
+
+
+def clone_tree(torch, tree):
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{f.name: clone_tree(torch, getattr(tree, f.name))
+                                            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: clone_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [clone_tree(torch, v) for v in tree]
+    return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def layer_q(state):
+    return [s["q"] for s in state.router_states if s is not None]
+
+
+def reset_launches(moe_gemm, bip_admm):
+    moe_gemm.reset_launch_counts()
+    bip_admm.reset_launch_counts()
+
+
+def read_launches(moe_gemm, bip_admm):
+    return {"grouped_gated_ffn_in": moe_gemm.grouped_gated_ffn_in.launches,
+            "grouped_matmul": moe_gemm.grouped_matmul.launches,
+            "bip_dual_update": bip_admm.bip_dual_update.launches,
+            "bip_admm_iteration": bip_admm.bip_admm_iteration.launches}
+
+
+def mesh_per_step(cfg):
+    """Launches per training step on a mesh: K1 1 and K2 1 + 8 backward per
+    MoE layer, K3's collective form T x (refine 1 + 1) single passes per
+    MoE layer and no fused launch."""
+    n_moe = sum(ffn == "moe" for _, ffn in cfg.layer_kinds())
+    return {"grouped_gated_ffn_in": n_moe, "grouped_matmul": 9 * n_moe, "bip_dual_update": 0,
+            "bip_admm_iteration": n_moe * cfg.routing.bip_iters * 2}
+
+
+def mesh_world1(torch, configs, mods, tmp, dev="cuda"):
+    """17(a): world size 1 over NCCL, mesh 1x1, minimind-16e at full width
+    through `ep` (it routes with the data axes, so the dual takes K3's
+    collective form): 3 steps of train_loop(mesh=) with the launches per
+    step asserted, then 3 steps each against the single-device step on the
+    same state and batch (losses and params within fp32 rounding, q
+    bit-equal per layer: the collective form over one rank must give the
+    fused kernel's q)."""
+    (Model, build_model, make_mesh_ctx, init_distributed, make_host_mesh, train_loop, compile_train_step,
+     make_train_step, init_train_state, from_model_config, constant, make_batches, moe_gemm, bip_admm,
+     sharding, tree_paths) = mods
+    import torch.distributed as dist
+
+    init_distributed(dev, backend="nccl" if dev == "cuda" else "gloo", init_method=f"file://{tmp}/nccl_store",
+                     rank=0, world_size=1)
+    mesh = make_host_mesh(1, 1)
+    cfg = mesh_cfg(configs, "minimind_moe_16e", "ep")
+    mmodel = build_model(cfg, make_mesh_ctx(mesh), device=dev)
+    batches = list(make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, MESH_STEPS, seed=0, device=dev))
+    reset_launches(moe_gemm, bip_admm)  # the main path: train_loop on the mesh
+    t = time.perf_counter()
+    _, log = train_loop(mmodel, batches, lr=1e-3, warmup_steps=1, total_steps=MESH_STEPS, mesh=mesh)
+    wall = time.perf_counter() - t
+    launches = read_launches(moe_gemm, bip_admm)
+    per_step = mesh_per_step(cfg)
+    print(f"[mesh] (a) world 1 over {dist.get_backend()}, mesh 1x1, {cfg.name} full width, bip T="
+          f"{cfg.routing.bip_iters} sync='global' use_kernel, moe_impl ep, batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+          f"train_loop(mesh=) {MESH_STEPS} steps, losses {[round(v, 4) for v in log.losses]}, wall {wall:.2f} s")
+    print(f"  launches {launches}; expected per step {per_step} (K3's collective form: 8 layers x T "
+          f"{cfg.routing.bip_iters} x 2 passes of the single-pass mode, against the fused form's 8)")
+    for name, want in per_step.items():
+        if launches[name] != want * MESH_STEPS:
+            raise AssertionError(f"(a) {name}: {launches[name]} launches, expected {want * MESH_STEPS}")
+    if not all(math.isfinite(v) for v in log.losses):
+        raise AssertionError("(a) non-finite loss")
+
+    smodel = Model(cfg, device=dev)
+    opt = from_model_config(cfg)
+    state = init_train_state(smodel, 0, opt)
+    specs = sharding.train_state_specs(state, cfg, mesh)
+    mstate = sharding.shard_tree(state, specs, mesh)  # one rank: its blocks are the whole leaves
+    del state
+    single_step = make_train_step(smodel, opt, constant(1e-3))
+    mesh_step = compile_train_step(mmodel, opt, constant(1e-3), mstate, batches[0], mesh=mesh, st_specs=specs)
+    worst = {"loss": 0.0, "param": 0.0, "q": 0.0}
+    for i, b in enumerate(batches):
+        ref, m_ref = single_step(clone_tree(torch, mstate), b)
+        mstate, m_mesh = mesh_step(mstate, b)
+        lm, lr_ = float(m_mesh["loss"]), float(m_ref["loss"])
+        dl = abs(lm - lr_) / abs(lr_)
+        dp = max(float((a - r).abs().max()) for (_, a), (_, r) in zip(tree_paths(mstate.params),
+                                                                      tree_paths(ref.params)))
+        same_q = [bool(torch.equal(a, r)) for a, r in zip(layer_q(mstate), layer_q(ref))]
+        dq = max(float((a - r).abs().max()) for a, r in zip(layer_q(mstate), layer_q(ref)))
+        worst = {"loss": max(worst["loss"], dl), "param": max(worst["param"], dp), "q": max(worst["q"], dq)}
+        print(f"  step {i} against the single-device step (fused K3) on the same state and batch: loss "
+              f"{lm:.6f} vs {lr_:.6f} (relative {dl:.2e}), largest param gap {dp:.2e}, q bit-equal "
+              f"per layer {same_q}")
+        if not all(same_q):
+            raise AssertionError(f"(a) step {i}: the collective K3 over one rank differs from the fused q")
+        if dl > 1e-5 or dp > 1e-5:
+            raise AssertionError(f"(a) step {i}: loss {dl:.2e} / params {dp:.2e} beyond fp32 rounding (1e-5)")
+        del ref
+    dist.destroy_process_group()
+    del mmodel, smodel, mstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, worst
+
+
+def single_reference(torch, configs, mods, arch, dev, fp32, nudge=False):
+    """The port's single-device run that 17(b) is held against: the same
+    config (sync='global', fused K3), seed-0 init and batches, MESH_STEPS
+    steps; per step loss, grad norm, MaxVio and q. `nudge`: every param of
+    the init first moved by about one ulp (x (1 +- 2^-23), signs drawn
+    from seed 1), a perturbation of the size of a changed summation
+    order: how far one device parts from itself under rounding alone."""
+    Model, init_train_state, make_train_step, from_model_config, constant, make_batches = mods
+    cfg = mesh_cfg(configs, arch, "ep", fp32)
+    model = Model(cfg, device=dev)
+    opt = from_model_config(cfg)
+    state = init_train_state(model, 0, opt)
+    if nudge:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        with torch.no_grad():
+            for _, p in named_leaves(state.params):
+                sign = torch.randint(0, 2, p.shape, generator=gen, device=p.device, dtype=torch.int8)
+                p.mul_(1.0 + 2.0**-23 * (2 * sign.to(p.dtype) - 1))
+                del sign
+    batches = list(make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, MESH_STEPS, seed=0, device=dev))
+    _, rec = step_loop(torch, make_train_step(model, opt, constant(1e-3)), state, batches)
+    del model, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def step_loop(torch, step_fn, state, batches, shard=None, rec=None):
+    """One step of `step_fn` per batch; per step the loss, grad norm,
+    per-layer MaxVio and q, and the wall time around work that ends in
+    reading the loss (appended to `rec` when given)."""
+    rec = rec if rec is not None else {"loss": [], "grad_norm": [], "vio": [], "q": [], "s": []}
+    for b in batches:
+        t = time.perf_counter()
+        state, mets = step_fn(state, b if shard is None else shard(b))
+        rec["loss"].append(float(mets["loss"]))
+        rec["s"].append(time.perf_counter() - t)
+        rec["grad_norm"].append(float(mets["grad_norm"]))
+        rec["vio"].append(mets["max_vio_per_layer"].float().cpu().numpy())
+        rec["q"].append([q.cpu().numpy() for q in layer_q(state)])
+    return state, rec
+
+
+def sq_dist(a, b) -> float:
+    return float((a.detach().double() - b.double()).square().sum())
+
+
+def step_gaps(sq_params, sq_mu, grad_norm, ref):
+    """Relative gaps of a first step to one device's (`ref`): the grad norm,
+    the Adam first moment's L2 and the update's L2, from the summed squared
+    differences of the params and first moments."""
+    return {"grad_norm": abs(grad_norm - ref["grad_norm"]) / ref["grad_norm"],
+            "grad": math.sqrt(sq_mu) / ref["mu_norm"], "update": math.sqrt(sq_params) / ref["update_norm"]}
+
+
+def one_device_first_step(torch, mods, cfg, batch, dev):
+    """One device's first step of `cfg` from the seed-0 init on `batch`, the
+    reference of 17(b)'s step-0 check: its params and Adam first moment
+    (tree_leaves order), grad norm, the first moment's and the update's L2
+    norms. Then the witnesses, steps from the same init with a gradient
+    known to be wrong (twice the loss; half the batch), as their
+    step_gaps to it."""
+    Model, init_train_state, make_train_step, from_model_config, constant, tree_leaves = mods
+    model = Model(cfg, device=dev)
+    opt = from_model_config(cfg)
+
+    def first(m, b):
+        state = init_train_state(m, 0, opt)
+        before = [p.detach().clone() for p in tree_leaves(state.params)]
+        state, mets = make_train_step(m, opt, constant(1e-3))(state, b)
+        params = [p.detach() for p in tree_leaves(state.params)]
+        update = math.sqrt(sum(sq_dist(a, z) for a, z in zip(params, before)))
+        return {"params": params, "mu": tree_leaves(state.opt_state["mu"]),
+                "grad_norm": float(mets["grad_norm"]), "update_norm": update}
+
+    ref = first(model, batch)
+    ref["mu_norm"] = math.sqrt(sum(float(t.double().square().sum()) for t in ref["mu"]))
+    twice = copy.copy(model)
+    twice.loss_fn = lambda p, b, r: (lambda loss, rest: (2.0 * loss, rest))(*model.loss_fn(p, b, r))
+    half = {k: v[: v.shape[0] // 2] for k, v in batch.items()}
+    witnesses = {}
+    for name, m, b in (("twice the loss", twice, batch), ("half the batch", model, half)):
+        w = first(m, b)
+        witnesses[name] = step_gaps(sum(sq_dist(a, z) for a, z in zip(w["params"], ref["params"])),
+                                    sum(sq_dist(a, z) for a, z in zip(w["mu"], ref["mu"])), w["grad_norm"], ref)
+        del w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, witnesses
+
+
+def leaf_specs(tree, specs):
+    """(leaf, spec) pairs of a tree and its spec tree, in tree_leaves order
+    (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree) for pair in leaf_specs(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [pair for t, sp in zip(tree, specs) for pair in leaf_specs(t, sp)]
+    return [] if tree is None else [(tree, specs)]
+
+
+def mesh_sq_dists(state, pspecs, mesh, unshard_tree, ref):
+    """The mesh state's summed squared differences from one device's first
+    step (`ref`, on rank 0; None elsewhere): each param and first-moment
+    leaf gathered whole in turn (a collective: every rank calls it), one
+    leaf at a time so that no rank holds the whole tree."""
+    sq = {"params": 0.0, "mu": 0.0}
+    for name, tree in (("params", state.params), ("mu", state.opt_state["mu"])):
+        for i, (leaf, spec) in enumerate(leaf_specs(tree, pspecs)):
+            whole = unshard_tree(leaf, spec, mesh)
+            if ref is not None:
+                sq[name] += sq_dist(whole, ref[name][i])
+            del whole
+    return sq["params"], sq["mu"]
+
+
+def gloo_probe(torch, dist, world, dev):
+    """Which collectives gloo takes on `dev`'s tensors (each tried once; a
+    refusal is recorded, not worked around)."""
+    x = torch.full((8,), float(dist.get_rank() + 1), device=dev)
+    tries = {
+        "all_reduce sum float32": lambda: dist.all_reduce(x.clone()),
+        "all_reduce sum int64": lambda: dist.all_reduce(x.long()),
+        "all_reduce sum bfloat16": lambda: dist.all_reduce(x.bfloat16()),
+        "all_reduce min": lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MIN),
+        "all_reduce max": lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MAX),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(x.new_empty(8 * world), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(x.new_empty(8 // world), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(x.new_empty(8), x),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            out[name] = "taken"
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"refused ({type(e).__name__}: {str(e)[:80]})"
+    return out
+
+
+class timed_collectives:
+    """Within the block, every call of the collectives the mesh path uses
+    adds its host-clock time to {name: [calls, ms]} (they return when gloo
+    is done)."""
+
+    NAMES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+
+    def __init__(self, dist):
+        self.dist, self.saved, self.waits = dist, {}, {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(self.dist, name)
+
+            def timed(*a, _fn=fn, _name=name, **k):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    rec = self.waits.setdefault(_name, [0, 0.0])
+                    rec[0] += 1
+                    rec[1] += 1e3 * (time.perf_counter() - t)
+            setattr(self.dist, name, timed)
+        return self.waits
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+        return False
+
+
+def mesh_rank(rank, world, workdir, root, device):
+    """One of 17(b)'s four ranks (spawned; everything it needs is passed or
+    imported here). Writes its results to workdir/rank{rank}.json."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import make_batches
+    from repro_torch.distributed import batch_layout, collectives, make_mesh_ctx, shard_tree, unshard_tree
+    from repro_torch.kernels import bip_admm, moe_gemm
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.models import Model, build_model
+    from repro_torch.optim import constant, from_model_config
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.training import TrainState, compile_train_step, init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed(device, backend="gloo", init_method=f"file://{workdir}/store", rank=rank,
+                           world_size=world)
+    out = {"device": str(dev), "backend": dist.get_backend(), "probe": gloo_probe(torch, dist, world, dev)}
+    mesh = make_host_mesh(*MESH_SHAPE)
+    data = ("data",)
+
+    # K3's collective form at the layer level: the whole batch's scores cut
+    # over the data ranks, against the fused kernel on the whole batch
+    gen = torch.Generator(device=dev).manual_seed(17)
+    with collectives.axis_env(mesh):
+        d_idx, n_d = collectives.axis_index(data), collectives.axis_size(data)
+        for n, m, k, t in K3_LAYER_SHAPES:
+            s, q0 = dual_inputs(torch, n, m, gen, warm=True, device=dev)
+            s_loc = s[d_idx * n // n_d:(d_idx + 1) * n // n_d]
+            q = bip_admm.bip_dual_update(s_loc, q0, top_k=k, n_iters=t, axis_names=data)
+            fused = bip_admm.bip_dual_update(s, q0, top_k=k, n_iters=t)
+            out[f"k3_{m}"] = {"equal": bool(torch.equal(q, fused)),
+                              "max_abs_err": float((q - fused).abs().max())}
+            counts = torch.zeros((m, N_BINS), device=dev)
+            collectives.psum(counts, data)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                collectives.psum(counts, data)
+            torch.cuda.synchronize()
+            out[f"all_reduce_ms_{m}"] = 1e3 * (time.perf_counter() - t0) / 20
+
+    runs = {}
+    for key, arch, impl, fp32 in mesh_runs():
+        cfg = mesh_cfg(configs, arch, impl, fp32)
+        batches = list(make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, MESH_STEPS + 1, seed=0, device=dev))
+        first = None
+        if fp32 and rank == 0:  # one device's first step and its witnesses, on this rank alone
+            first = one_device_first_step(torch, (Model, init_train_state, make_train_step, from_model_config,
+                                                  constant, tree_leaves), cfg, batches[0], dev)
+        model = build_model(cfg, make_mesh_ctx(mesh), device=dev)
+        opt = from_model_config(cfg)
+        pspecs = model.mesh_ctx.param_specs
+        params = shard_tree(model.init(0), pspecs, mesh)
+        state = TrainState(params, adamw_init(params, opt), model.init_router_states())
+        b_specs = batch_layout(cfg, mesh, batches[0])
+        step = compile_train_step(model, opt, constant(1e-3), state, batches[0], mesh=mesh, b_specs=b_specs)
+        shard = lambda b: shard_tree(b, b_specs, mesh)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(moe_gemm, bip_admm)  # the main path: the sharded steps
+        state, rec = step_loop(torch, step, state, batches[:1], shard)
+        runs[key] = {}
+        if fp32:  # after the first step: the whole mesh state against one device's
+            sq_p, sq_mu = mesh_sq_dists(state, pspecs, mesh, unshard_tree, None if first is None else first[0])
+            if first is not None:
+                runs[key]["step0"] = {"mesh": step_gaps(sq_p, sq_mu, rec["grad_norm"][0], first[0]),
+                                      "witnesses": first[1], "one_device_grad_norm": first[0]["grad_norm"]}
+            del first
+        state, rec = step_loop(torch, step, state, batches[1:MESH_STEPS], shard, rec)
+        launches = read_launches(moe_gemm, bip_admm)
+        runs[key].update({
+            "loss": rec["loss"], "grad_norm": rec["grad_norm"], "vio": [v.tolist() for v in rec["vio"]],
+            "q": [[q.tolist() for q in step_q] for step_q in rec["q"]], "s": rec["s"],
+            "launches": launches, "per_step": mesh_per_step(cfg),
+            "peak_gb": None if fp32 else torch.cuda.max_memory_allocated() / 2**30,
+        })
+        if not fp32:
+            # one more step in a profiler window, with the host clock around
+            # every collective call (they block until gloo is done)
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU]) as prof, timed_collectives(dist) as waits:
+                t0 = time.perf_counter()
+                state, mets = step(state, shard(batches[MESH_STEPS]))
+                float(mets["loss"])
+                window_s = time.perf_counter() - t0
+            coll = {}  # the collectives' ops, and gloo's own records where the profiler has them
+            for e in prof.key_averages():
+                if e.key.startswith("c10d::") or "gloo" in e.key.lower():
+                    coll[e.key] = (e.count, e.cpu_time_total / 1e3)
+            top = sorted(prof.key_averages(), key=lambda e: -e.cpu_time_total)[:6]
+            runs[key].update(window_s=window_s, collectives_ms=coll, collective_calls=waits,
+                             window_top=[(e.key, e.count, e.cpu_time_total / 1e3) for e in top])
+        del model, state, params, batches, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["runs"] = runs
+    with open(Path(workdir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def mesh_shared_card(torch, np, configs, mods, tmp, dev="cuda"):
+    """17(b): four ranks sharing the card, mesh 2x2 over gloo with CUDA
+    tensors: minimind-16e and 64e at full width, MESH_STEPS steps each
+    through ep and ep2ds in bf16 (the main path), and the MESH_CONTROLS in
+    fp32, against the port's single-device runs on the same state and
+    batches. Gates: every rank the same loss; exact launches per step on
+    every rank; bf16: the loss within MESH_BF16_LOSS_RTOL of one device at
+    every step; fp32: the gaps within MESH_NUDGE_FACTOR of one device's
+    own under a one-ulp nudge and, after the first step, the whole state
+    within MESH_STEP0_TOL of one device's while each witness breaks one
+    of those bounds."""
+    import torch.multiprocessing as mp
+
+    single = {(arch, fp32): single_reference(torch, configs, mods, arch, dev, fp32)
+              for arch, fp32 in dict.fromkeys((arch, fp32) for _, arch, _, fp32 in mesh_runs())}
+    nudged = {arch: single_reference(torch, configs, mods, arch, dev, True, nudge=True)
+              for arch in dict.fromkeys(arch for arch, _ in MESH_CONTROLS)}
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(mesh_rank, args=(world, str(tmp), str(ROOT), dev), nprocs=world, join=False,
+                             start_method="spawn")
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > MESH_DEADLINE_S:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"(b) the ranks did not finish in {MESH_DEADLINE_S} s")
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+    r0 = ranks[0]
+    print(f"[mesh] (b) {world} ranks sharing the card, mesh {MESH_SHAPE[0]}x{MESH_SHAPE[1]} over "
+          f"{r0['backend']} with CUDA tensors ({r0['device']} each), spawned: wall {wall:.1f} s")
+    print(f"  gloo on CUDA tensors: {r0['probe']}")
+    refused = [c for c in GLOO_USED if r0["probe"].get(c) != "taken"]
+    if refused:
+        raise AssertionError(f"(b) gloo refuses collectives the mesh path uses: {refused}")
+    k3 = {}
+    for n, m, k, t in K3_LAYER_SHAPES:
+        res = [r[f"k3_{m}"] for r in ranks]
+        k3[m] = {"max_abs_err": max(x["max_abs_err"] for x in res),
+                 "all_reduce_ms": r0[f"all_reduce_ms_{m}"]}
+        print(f"  K3 collective form at the layer level, (n, m, k, T) = ({n}, {m}, {k}, {t}) cut over "
+              f"{MESH_SHAPE[0]} data ranks: q bit-equal to the fused kernel on the whole batch on every "
+              f"rank {[x['equal'] for x in res]}; one psum of the ({m}, {N_BINS}) counts "
+              f"{r0[f'all_reduce_ms_{m}']:.3f} ms (rank 0, host clock)")
+        if not all(x["equal"] for x in res):
+            raise AssertionError(f"(b) K3's collective form differs from the fused kernel at m={m}")
+    def gaps(run, ref):
+        """Per step: the loss gap, the largest q gap per layer, and the
+        worst layer's MaxVio gap as a share of the mean load."""
+        return ([abs(a - b) for a, b in zip(run["loss"], ref["loss"])],
+                [[float(np.abs(np.asarray(a) - b).max()) for a, b in zip(qs, rq)]
+                 for qs, rq in zip(run["q"], ref["q"])],
+                [float(np.abs(np.asarray(a) - b).max()) for a, b in zip(run["vio"], ref["vio"])])
+
+    def show(dl, dq, dv, quantum):
+        return (f"loss gap {[f'{v:.1e}' for v in dl]}; largest q gap per step {[f'{max(v):.1e}' for v in dq]}; "
+                f"the worst layer's MaxVio gap per step {[f'{v:.4f}' for v in dv]} (mean {sum(dv) / len(dv):.4f}; "
+                f"in tokens {[round(v / quantum, 1) for v in dv]})")
+
+    launches, controls, failed = {}, {}, []
+    for key, arch, impl, fp32 in mesh_runs():
+        run0, ref = r0["runs"][key], single[arch, fp32]
+        cfg = mesh_cfg(configs, arch, impl, fp32)
+        quantum = 1.0 / (TRAIN_BATCH * TRAIN_SEQ * cfg.routing.top_k / cfg.routing.n_experts)
+        losses = [r["runs"][key]["loss"] for r in ranks]
+        if any(v != losses[0] for v in losses):
+            failed.append(f"{key}: the ranks disagree on the loss: {losses}")
+        dl, dq, dv = gaps(run0, ref)
+        per_rank = [ranks[r]["runs"][key]["launches"] for r in range(world)]
+        print(f"  {key} (bip T={cfg.routing.bip_iters}, sync='global', K3 collective): losses "
+              f"{[round(v, 5) for v in run0['loss']]} vs one device {[round(v, 5) for v in ref['loss']]} "
+              f"(relative {[f'{v / b:.1e}' for v, b in zip(dl, ref['loss'])]}); {show(dl, dq, dv, quantum)}; "
+              f"step 0's q gap per layer {[f'{v:.1e}' for v in dq[0]]}; grad norm "
+              f"{[round(v, 5) for v in run0['grad_norm']]} vs one device {[round(v, 5) for v in ref['grad_norm']]}")
+        print(f"    launches per rank over {MESH_STEPS} steps {per_rank} (expected per step {run0['per_step']})"
+              + ("" if fp32 else f"; peak memory per rank "
+                 f"{[round(ranks[r]['runs'][key]['peak_gb'], 2) for r in range(world)]} GB"))
+        for r in range(world):
+            for name, want in run0["per_step"].items():
+                if per_rank[r][name] != want * MESH_STEPS:
+                    failed.append(f"{key} rank {r}: {name} launched {per_rank[r][name]} times, expected "
+                                  f"{want * MESH_STEPS}")
+        if not all(math.isfinite(v) for v in run0["loss"]):
+            failed.append(f"{key}: non-finite loss {run0['loss']}")
+        if not fp32:
+            st = sorted(run0["s"][1:])
+            waits = run0["collective_calls"]
+            print(f"    step p50 {1e3 * st[len(st) // 2]:.1f} ms (rank 0, steps 1-{MESH_STEPS - 1}); profile "
+                  f"window of one step on rank 0: {run0['window_s'] * 1e3:.1f} ms wall; host clock inside the "
+                  f"collective calls {sum(v[1] for v in waits.values()):.1f} ms over "
+                  f"{sum(v[0] for v in waits.values())} calls {waits}; profiler records of the collectives "
+                  f"{run0['collectives_ms']}; top host records {run0['window_top']}")
+            worst = max(v / b for v, b in zip(dl, ref["loss"]))
+            if worst > MESH_BF16_LOSS_RTOL:
+                failed.append(f"{key}: loss {run0['loss']} not within {MESH_BF16_LOSS_RTOL} (relative) of "
+                              f"{ref['loss']}")
+            launches[key] = per_rank[0]
+            continue
+        wl, wq, wv = gaps(nudged[arch], ref)
+        print(f"    one device against itself from an init nudged by one ulp: {show(wl, wq, wv, quantum)}")
+        s0 = run0["step0"]
+        print(f"    after step 0 against one device's step (same state and batch), relative gaps: mesh "
+              f"{ {k: f'{v:.2e}' for k, v in s0['mesh'].items()} }; witnesses on one device "
+              f"{ {w: {k: f'{v:.2e}' for k, v in g.items()} for w, g in s0['witnesses'].items()} }; bounds "
+              f"{MESH_STEP0_TOL}")
+        controls[key] = {"loss": max(dl), "q": max(max(v) for v in dq), "vio_max": max(dv),
+                         "vio_mean": sum(dv) / len(dv), "nudged_loss": max(wl),
+                         "nudged_q": max(max(v) for v in wq), "nudged_vio_max": max(wv),
+                         "nudged_vio_mean": sum(wv) / len(wv), **{f"step0_{k}": v for k, v in s0["mesh"].items()}}
+        c = controls[key]
+        for name in MESH_NUDGE_FLOOR:
+            if c[name] > MESH_NUDGE_FACTOR * c[f"nudged_{name}"] + MESH_NUDGE_FLOOR[name]:
+                failed.append(f"{key}: {name} gap {c[name]:.3e} beyond {MESH_NUDGE_FACTOR} x the nudged run's "
+                              f"{c[f'nudged_{name}']:.3e} (+ {MESH_NUDGE_FLOOR[name]})")
+        over = {k: v for k, v in s0["mesh"].items() if v > MESH_STEP0_TOL[k]}
+        if over:
+            failed.append(f"{key}: after step 0 the mesh parts from one device: {over}")
+        for w, g in s0["witnesses"].items():
+            if not any(v > MESH_STEP0_TOL[k] for k, v in g.items()):
+                failed.append(f"{key}: the witness '{w}' passes the step-0 bounds ({g}): they would not catch it")
+    if failed:
+        raise AssertionError("(b) " + "; ".join(failed))
+    return launches, k3, controls
+
+
+def k3_pass_times(torch, bip_admm, gen, device_ms):
+    """K3's single-pass mode (the collective form's one launch per pass) at
+    each K3_PASS_SHAPES: its device time from phase 6's profiler trace
+    (`device_ms`), the time of one host-issued call by CUDA events (the
+    launch and the host's work around it), the plain version's and the
+    bound. Returns {(n, m, k): (ms, host_ms, plain_ms, bound_ms, bound_by)}."""
+    out = {}
+    for n, m, k in K3_PASS_SHAPES:
+        s, q = dual_inputs(torch, n, m, gen, warm=True)
+        lo, hi = bip_admm._bounds(None, None, m, s.device)
+        host_ms = time_ms(torch, lambda s, q: bip_admm.bip_admm_iteration(
+            s, q, top_k=k, n_bins=N_BINS, lo=lo, hi=hi), [(s, q)], reps=20)
+        p_ms = time_ms(torch, lambda s, q: bip_admm.bip_admm_iteration_plain(
+            s, q, lo, hi, top_k=k, n_bins=N_BINS), [(s, q)], reps=5)
+        b_ms, b_by = k3_bound(n, m, k, N_BINS)
+        k_ms = device_ms[n, m, k]
+        out[n, m, k] = (k_ms, host_ms, p_ms, b_ms, b_by)
+        print(f"  (n, m, k) = ({n}, {m}, {k}): {k_ms:.4f} ms per pass (device time, phase 6's trace), "
+              f"{host_ms:.4f} ms per host-issued call (CUDA events), plain version {p_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by})")
+    return out
+
+
+def mesh_ffn_shape(cfg, impl, moe):
+    """(E, C, D, F) of the expert FFN on one rank of the MESH_SHAPE mesh:
+    m / n_model experts; ep: capacity from the rank's tokens, f whole; ep2ds:
+    the buffers of the data ranks gathered along capacity, f / n_data."""
+    n_data, n_model = MESH_SHAPE
+    cap = moe.expert_capacity(TRAIN_BATCH * TRAIN_SEQ // n_data, cfg)
+    e, f = cfg.routing.n_experts // n_model, cfg.moe_d_ff
+    return (e, cap, cfg.d_model, f) if impl == "ep" else (e, n_data * cap, cfg.d_model, f // n_data)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2224,7 +2879,11 @@ def main() -> int:
     from repro_torch.serving import ContinuousBatchingEngine, greedy_generate
     from repro_torch.training import evaluate_ppl, init_train_state, make_train_step, train_loop
     from repro_torch.training.loop import unused_leaves
-    from repro_torch.optim import adamw
+    from repro_torch.optim import adamw, constant
+    from repro_torch.distributed import make_mesh_ctx, sharding
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.training import compile_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2369,21 +3028,28 @@ def main() -> int:
     # -- 6. the BIP-ADMM dual kernel (K3) against its plain version
     print("[K3] the fused dual update vs the plain torch loop (q must be bit-equal), and the "
           "single-pass mode (p and counts bit-equal)")
-    k3_err, k3_timings = check_k3(torch, bip_admm, kernel_ops, ref_bip, gen)
+    k3_err, k3_timings, k3_pass_dev = check_k3(torch, bip_admm, kernel_ops, ref_bip, gen)
 
     # -- 7. the expert-FFN forward and backward at the training shape
     print(f"[ffn] K1/K2 forward and the backward uses of K2 at the training shape E,C,D,F={TRAIN} "
           f"and the microbatch shape {MICRO}")
     train_err = check_kernels(torch, moe_gemm, TRAIN, "bfloat16", gen)
     micro_err = check_kernels(torch, moe_gemm, MICRO, "bfloat16", gen)
-    fwd_timings = time_forward(torch, moe_gemm, {TRAIN: 2, MICRO: 2, LLAMA4: 2, ARCTIC16: 2, LLAMA4_TRAIN: 2},
-                               gen)
+    # phase 17's per-rank expert-FFN shapes (2x2 mesh), timed in this one trace
+    mesh_shapes = {(arch, impl): mesh_ffn_shape(mesh_cfg(configs, arch, impl), impl, moe)
+                   for arch in MESH_ARCHS for impl in MESH_IMPLS}
+    mesh_err = {shape: check_kernels(torch, moe_gemm, shape, "bfloat16", gen) for shape in mesh_shapes.values()}
+    fwd_timings = time_forward(torch, moe_gemm, {TRAIN: 2, MICRO: 2, LLAMA4: 2, ARCTIC16: 2, LLAMA4_TRAIN: 2,
+                                                 **{shape: 2 for shape in mesh_shapes.values()}}, gen)
     train_timings, micro_timings = fwd_timings[TRAIN], fwd_timings[MICRO]
     print_forward_times(train_timings, TRAIN)
     print_forward_times(micro_timings, MICRO)
     print_forward_times(fwd_timings[LLAMA4], LLAMA4)
     print_forward_times(fwd_timings[ARCTIC16], ARCTIC16)
     print_forward_times(fwd_timings[LLAMA4_TRAIN], LLAMA4_TRAIN)
+    for (arch, impl), shape in mesh_shapes.items():
+        print(f"  phase 17's {arch} {impl} expert FFN on one rank of the 2x2 mesh:")
+        print_forward_times(fwd_timings[shape], shape)
     torch.cuda.empty_cache()
     check_ffn_backward(torch, moe_gemm, kernel_ops, "bfloat16", gen)
     check_ffn_backward(torch, moe_gemm, kernel_ops, "bfloat16", gen, shape=MICRO)
@@ -2455,19 +3121,36 @@ def main() -> int:
 
     # -- 16. packed multi-request serving prefill at full width
     packed = packed_serving(torch, configs, (Model, ContinuousBatchingEngine, moe_gemm))
+    torch.cuda.empty_cache()
+
+    # -- 17. expert-parallel training on a torch.distributed mesh
+    t17 = time.perf_counter()
+    tmp17 = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        mesh_a, mesh_a_worst = mesh_world1(torch, configs, (
+            Model, build_model, make_mesh_ctx, init_distributed, make_host_mesh, train_loop, compile_train_step,
+            make_train_step, init_train_state, from_model_config, constant, make_batches, moe_gemm, bip_admm,
+            sharding, adamw.tree_paths), tmp17)
+        print("[mesh] K3's collective form: the single-pass mode at the shapes phase 17 runs it")
+        k3_pass = k3_pass_times(torch, bip_admm, gen, k3_pass_dev)
+        mesh_b, k3_layer, _ = mesh_shared_card(torch, np, configs, (
+            Model, init_train_state, make_train_step, from_model_config, constant, make_batches), tmp17)
+    finally:
+        shutil.rmtree(tmp17, ignore_errors=True)
+    print(f"[mesh] phase wall {time.perf_counter() - t17:.1f} s")
 
     record = []
     for name, line, use, times, shape, n_launches, max_err in (
         (k1, 41, "forward, serving shape; launches: serving (phases 4, 13, 16)", timings[k1], serve_shape,
          launches[k1] + obs["serve"]["K1"] + packed["K1"], err[k1]),
         (k1, 41, "forward, training shape; launches: training (phase 8), phase 12's 16e synthetic "
-         "cells and phase 13", train_timings[k1], TRAIN,
-         train_launches[k1] + matrix_launches["16e"]["K1"] + obs["train"]["K1"], train_err[k1]),
+         "cells, phase 13 and phase 17(a) (mesh 1x1 over NCCL)", train_timings[k1], TRAIN,
+         train_launches[k1] + matrix_launches["16e"]["K1"] + obs["train"]["K1"] + mesh_a[k1], train_err[k1]),
         (k2, 94, "forward, serving shape; launches: serving (phases 4, 13, 16)", timings[k2], serve_shape,
          launches[k2] + obs["serve"]["K2"] + packed["K2"], err[k2]),
         (k2, 94, "forward, training shape; launches: training (phase 8), phase 12's 16e synthetic "
-         "cells and phase 13, all nine uses", train_timings[k2], TRAIN,
-         train_launches[k2] + matrix_launches["16e"]["K2"] + obs["train"]["K2"], train_err[k2]),
+         "cells, phase 13 and phase 17(a) (mesh 1x1 over NCCL), all nine uses", train_timings[k2], TRAIN,
+         train_launches[k2] + matrix_launches["16e"]["K2"] + obs["train"]["K2"] + mesh_a[k2], train_err[k2]),
         (k1, 41, "forward, microbatch shape; launches: real-text training (phase 11) and phase 12's "
          "real-text cells, 2 microbatches", micro_timings[k1], MICRO,
          real_launches[k1] + matrix_launches["16e-micro"]["K1"], micro_err[k1]),
@@ -2492,6 +3175,12 @@ def main() -> int:
         (k2, 94, "forward, llama4-scout training shape; launches: phase 15's six llama4-scout steps, all nine "
          "uses (the eight backward uses have rows of their own)", fwd_timings[LLAMA4_TRAIN][k2], LLAMA4_TRAIN,
          llama4_trained["K2"], moe_err[LLAMA4_TRAIN][k2]),
+    ) + tuple(
+        (name, line, f"forward, one rank's expert FFN of phase 17(b), {arch} through {impl} on the 2x2 mesh "
+         f"({MESH_FFN_LAYOUT[impl]}); launches: rank 0 of the four ranks, {MESH_STEPS} steps"
+         + (", all nine uses" if name == k2 else ""),
+         fwd_timings[shape][name], shape, mesh_b[f"{arch}/{impl}"][name], mesh_err[shape][name])
+        for (arch, impl), shape in mesh_shapes.items() for name, line in ((k1, 41), (k2, 94))
     ):
         k_ms, p_ms, lib_ms, _ = times
         b_ms, b_by = bound(name, shape, "bfloat16")
@@ -2550,6 +3239,39 @@ def main() -> int:
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,
+        })
+    k3_collective = (
+        ((TRAIN_BATCH * TRAIN_SEQ, 16, 4), mesh_a["bip_admm_iteration"], mesh_a_worst["q"],
+         "phase 17(a): minimind-16e on the 1x1 mesh over NCCL, the whole batch on its one rank"),
+        ((TRAIN_BATCH * TRAIN_SEQ // MESH_SHAPE[0], 16, 4),
+         sum(mesh_b[f"minimind_moe_16e/{impl}"]["bip_admm_iteration"] for impl in MESH_IMPLS),
+         k3_layer[16]["max_abs_err"], "phase 17(b): minimind-16e, rank 0 of the 2x2 mesh, ep and ep2ds"),
+        ((TRAIN_BATCH * TRAIN_SEQ // MESH_SHAPE[0], 64, 8),
+         sum(mesh_b[f"minimind_moe_64e/{impl}"]["bip_admm_iteration"] for impl in MESH_IMPLS),
+         k3_layer[64]["max_abs_err"], "phase 17(b): minimind-64e, rank 0 of the 2x2 mesh, ep and ep2ds"),
+    )
+    for (n, m, k), n_launches, max_err, where in k3_collective:
+        k_ms, host_ms, p_ms, b_ms, b_by = k3_pass[n, m, k]
+        record.append({
+            "name": "bip_admm_iteration",
+            "use": f"K3's collective form (sync='global' on a mesh): one single-pass launch per histogram pass "
+                   f"at the rank's (n, m, k) = ({n}, {m}, {k}), its ({m}, {N_BINS}) counts psum'd over the data "
+                   f"ranks, T x 2 passes per MoE layer per step; launches: {where}; max_abs_err: the collective "
+                   f"q against the fused kernel's on the same scores; ms: device time of one pass (phase 6's "
+                   f"profiler trace); host_ms: one host-issued pass by CUDA events; all_reduce_ms: one psum of "
+                   f"the counts over gloo with CUDA tensors, 2 data ranks sharing the card (host clock)",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bip_admm.cu",
+            "replaces": "src/repro/kernels/bip_admm.py:43",
+            "launches": n_launches,
+            "max_abs_err": max_err,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "host_ms": host_ms,
+            "all_reduce_ms": k3_layer[m]["all_reduce_ms"],
         })
     print(json.dumps({"kernels": record}))
     print(smi)

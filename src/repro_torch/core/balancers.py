@@ -10,6 +10,12 @@ expert_choice (training-only) here, and phi (core/phi.py) and lpr
 Expert-choice leaves a token's spare slots at the sentinel index m with
 weight 0: every one-hot here drops it (`one_hot`), and the dispatch plan
 never keeps it.
+
+Each hook receives `axis_names`: the mesh's data axes under sync='global'
+(router.route passes cfg.data_axes), else (). Reductions over the batch
+(the selection histogram, lpr's cluster sums, the bip dual's counts) are
+psum'd over them (distributed.collectives, under the caller's axis_env),
+so a sharded batch updates the carried state as the whole batch would.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ import torch
 from repro_torch.core import ref_bip
 from repro_torch.core.metrics import balance_metrics
 from repro_torch.core.types import RouterConfig
+from repro_torch.distributed import collectives
+from repro_torch.kernels import ops as kernel_ops
 
 Tensor = torch.Tensor
 State = Dict[str, Tensor]
@@ -28,8 +36,6 @@ State = Dict[str, Tensor]
 _REGISTRY: Dict[str, "Balancer"] = {}
 
 _warned: set = set()
-
-_NO_MESH = ref_bip.NO_MESH
 
 
 def _warn_once(key: str, msg: str) -> None:
@@ -88,10 +94,18 @@ def topk_select(s: Tensor, corrected: Tensor, cfg: RouterConfig) -> Tuple[Tensor
 
 
 class Balancer:
-    """Base strategy: plain token-choice top-k, no balancing, no state use."""
+    """Base strategy: plain token-choice top-k, no balancing, no state use.
+
+    STATE_KEYS      the state keys the dual watchdog covers, in order
+    local_avg_keys  state keys the expert-parallel paths pmean over the
+                    data shards under sync='local' (the warm-start average)
+    serving_ok      supports masked serving rows (causal under decode)
+    uses_kernel     consumes cfg.use_kernel (bip's K3 only)
+    """
 
     name: str = ""
     STATE_KEYS: Tuple[str, ...] = ("q",)
+    local_avg_keys: Tuple[str, ...] = ("q",)
     serving_ok: bool = True
     uses_kernel: bool = False
 
@@ -164,14 +178,13 @@ class AuxLossBalancer(Balancer):
 
 def selection_load(idx: Tensor, m: int, dtype, token_mask: Optional[Tensor] = None,
                    axis_names: tuple = ()) -> Tensor:
-    """Per-expert selection histogram (m,), masked rows excluded; integer
-    valued, so exact in any summation order."""
-    if axis_names:
-        raise NotImplementedError(_NO_MESH)
+    """Per-expert selection histogram (m,), masked rows excluded, psum'd
+    over `axis_names` so sync='global' methods see the global batch;
+    integer valued, so exact in any summation order."""
     onehot = one_hot(idx, m, dtype)
     if token_mask is not None:
         onehot = onehot * token_mask.to(dtype)[:, None, None]
-    return onehot.sum(dim=(0, 1)).detach()
+    return collectives.psum(onehot.sum(dim=(0, 1)).detach(), axis_names)
 
 
 @register_balancer("lossfree")
@@ -200,6 +213,8 @@ class BIPBalancer(Balancer):
     (serving) run the plain threshold bisection over the real rows; unmasked
     calls run the exact sort-based update, or with use_kernel the ADMM
     kernel's histogram dual (kernels/ops.py, K3), under either sync mode.
+    Under sync='global' on a mesh (axis_names) the kernel dual runs in its
+    collective form and the bisection psums its counts.
     """
 
     STATE_KEYS = ("q", "q_ema", "q_err")
@@ -227,16 +242,12 @@ class BIPBalancer(Balancer):
     def _solve(self, s, q0, cfg):
         """The unmasked dual update: the K3 kernel's dual or the exact one."""
         if cfg.use_kernel:
-            from repro_torch.kernels import ops as kernel_ops  # lazy: import cycle
-
             return kernel_ops.bip_dual_update(s, q0, top_k=cfg.top_k, n_iters=cfg.bip_iters)
         q, _ = ref_bip.bip_dual_update(s, q0, top_k=cfg.top_k, n_iters=cfg.bip_iters)
         return q
 
     def score_adjust(self, s, state, cfg, *, token_mask=None, axis_names=(),
                      local_shards=1):
-        if axis_names:
-            raise NotImplementedError(_NO_MESH)
         n, m = s.shape
         q0 = state["q"]
         updates: State = {}
@@ -244,9 +255,11 @@ class BIPBalancer(Balancer):
         # solve already produced
         tel: State = {}
         if cfg.sync == "global" and cfg.use_kernel and token_mask is None:
-            # the reference's collective kernel path with no mesh axes: the
-            # single-device kernel dual
-            q = self._solve(s.detach(), q0, cfg)
+            # the kernel dual; with axis_names its collective form (the
+            # histogram counts psum'd between passes), without them the
+            # single-device kernel
+            q = kernel_ops.bip_dual_update(s.detach(), q0, top_k=cfg.top_k, n_iters=cfg.bip_iters,
+                                           axis_names=axis_names)
             corrected = s - q[None, :]
         elif cfg.sync == "global" or token_mask is not None:
             if cfg.use_kernel:  # only reachable with a token mask
@@ -267,7 +280,7 @@ class BIPBalancer(Balancer):
             q, _, t = ref_bip.bip_dual_update_global(
                 s.detach(), q0,
                 top_k=cfg.top_k, n_iters=cfg.bip_iters,
-                token_mask=token_mask,
+                token_mask=token_mask, axis_names=axis_names,
                 n_bisect=cfg.n_bisect, fanout=cfg.bisect_fanout,
                 score_bounds=(0.0, 1.0), window=window, with_stats=True,
             )

@@ -25,12 +25,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.balancers import _NO_MESH, Balancer, one_hot, register_balancer
+from repro_torch.core.balancers import Balancer, one_hot, register_balancer
+from repro_torch.distributed import collectives
 
 
 @register_balancer("lpr")
 class LPRBalancer(Balancer):
     """Prototype-assignment gate with an EMA k-means prototype update."""
+
+    # the expert-parallel paths under sync='local' average both carried
+    # leaves over the data shards, so 'proto' stays replicated too
+    local_avg_keys = ("q", "proto")
 
     def init_state(self, cfg, device="cpu"):
         state = super().init_state(cfg, device)
@@ -45,14 +50,14 @@ class LPRBalancer(Balancer):
         return (1.0 - lam) * s + lam * affinity, {}
 
     def update_state(self, s, idx, state, cfg, *, token_mask=None, axis_names=()):
-        if axis_names:
-            raise NotImplementedError(_NO_MESH)
         onehot = one_hot(idx, s.shape[-1], cfg.router_dtype)  # (n, k, m)
         if token_mask is not None:
             onehot = onehot * token_mask.to(cfg.router_dtype)[:, None, None]
         assign = onehot.sum(dim=1)  # (n, m)
         counts = assign.sum(dim=0)  # (m,)
         sums = assign.T @ s.detach()  # (m, m): sum of s_i over cluster j
+        counts = collectives.psum(counts, axis_names)
+        sums = collectives.psum(sums, axis_names)
         proto = state["proto"]
         mean = sums / torch.clamp_min(counts, 1.0)[:, None]
         target = torch.where((counts > 0.0)[:, None], mean, proto)

@@ -15,6 +15,13 @@ keeps the reference's numerics step for step — midpoint ladders built from
 exact (a+b)*0.5 chains, exact small-integer counts, bounds gathered from the
 ladder rather than recomputed — so on identical fp32 scores both packages
 land on bit-identical duals.
+
+With `axis_names` (sync='global' on a mesh) `s` is this rank's token shard
+and every collective quantity is reduced over those mesh axes
+(distributed.collectives, under the caller's axis_env): the real-token
+count, the bisection bounds where no static bracket is given, and one fused
+exceedance-count psum per bisection round. The counts are exact integers,
+so every rank converges on the dual the whole batch gives on one device.
 """
 from __future__ import annotations
 
@@ -23,17 +30,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.kernels.bip_admm import expert_kth_index
+
 Tensor = torch.Tensor
-
-NO_MESH = "multi-device dual sync (axis_names) is not ported yet"
-
-
-def expert_kth_index(n: int, k: int, m: int) -> int:
-    """0-based index of the (nk/m + 1)-th largest of n values, or -1 when it
-    falls past the end (capacity slack: q_j must be 0)."""
-    idx = (n * k) // m
-    return -1 if idx >= n else idx
-
 
 def kth_largest(x: Tensor, kth: int, dim: int = -1) -> Tensor:
     """Value of the (kth+1)-th largest element along `dim` (0-based kth)."""
@@ -104,6 +104,7 @@ def kth_largest_threshold(
     *,
     dim: int = -1,
     n_bisect: int = 26,
+    axis_names: tuple = (),
     lo: Optional[Tensor] = None,
     hi: Optional[Tensor] = None,
     fanout: int = 1,
@@ -127,11 +128,16 @@ def kth_largest_threshold(
     w_lo < w_hi, round 0's bracket is intersected with it, elsewhere (a
     stale window) it is ignored. The port's rounds run whether or not they
     narrow anything, so a window changes the bracket, not the launches.
+
+    With `axis_names`, x is this rank's shard along `dim`: missing bounds
+    come from pmin/pmax, and each round's counts (with round 0's window
+    probes) are one psum over the axes.
     """
+    axis_names = tuple(axis_names)
     if lo is None:
-        lo = torch.amin(x, dim=dim)
+        lo = collectives.pmin(torch.amin(x, dim=dim), axis_names)
     if hi is None:
-        hi = torch.amax(x, dim=dim)
+        hi = collectives.pmax(torch.amax(x, dim=dim), axis_names)
     xm = x.movedim(dim, 0)  # (n, *rest)
     n = xm.shape[0]
     rest = tuple(xm.shape[1:])
@@ -149,15 +155,20 @@ def kth_largest_threshold(
     n_rows = xr.shape[0]
     ones = torch.ones_like(xr, dtype=torch.float32)
 
-    def fused_counts(pts):
-        # #{x > pts[i]} for the interior ladder points i = 1..P-2
+    def fused_counts(pts, extra=()):
+        # #{x > pts[i]} for the interior ladder points i = 1..P-2, then
+        # #{x > e} for each `extra` threshold, in one psum over the axes
         n_pts = pts.shape[0]
         ptsr = pts.reshape(n_pts, -1).t().contiguous()  # (R, P)
         b = torch.searchsorted(ptsr, xr)  # #{ladder points < x}
         hist = torch.zeros((n_rows, n_pts + 1), dtype=torch.float32, device=dev)
         hist.scatter_add_(1, b, ones)
         rc = hist.flip(1).cumsum(1).flip(1)  # rc[:, i] = #{b >= i}
-        return rc[:, 2:n_pts].t().reshape((n_pts - 2,) + rest)
+        cnt = rc[:, 2:n_pts].t().reshape((n_pts - 2,) + rest)
+        if extra:
+            ex = [(xm > e[None]).sum(dim=0, dtype=torch.float32)[None] for e in extra]
+            cnt = torch.cat([cnt] + ex, dim=0)
+        return collectives.psum(cnt, axis_names)
 
     def ladder(lo_, hi_):
         pts = torch.stack([lo_, hi_])
@@ -172,14 +183,15 @@ def kth_largest_threshold(
         return pts.gather(0, j)[0], pts.gather(0, j + 1)[0]
 
     pts = ladder(lo, hi)
-    new_lo, new_hi = subinterval(pts, fused_counts(pts))
     if window is None:
-        lo, hi = new_lo, new_hi
+        lo, hi = subinterval(pts, fused_counts(pts))
     else:  # round 0 carries the window's two validation probes
+        n_probes = pts.shape[0] - 2
         w_lo = torch.as_tensor(window[0], dtype=dt, device=dev).expand(rest)
         w_hi = torch.as_tensor(window[1], dtype=dt, device=dev).expand(rest)
-        c_lo = (xm > w_lo[None]).sum(dim=0, dtype=torch.float32)
-        c_hi = (xm > w_hi[None]).sum(dim=0, dtype=torch.float32)
+        cnt = fused_counts(pts, extra=(w_lo, w_hi))
+        new_lo, new_hi = subinterval(pts, cnt[:n_probes])
+        c_lo, c_hi = cnt[n_probes], cnt[n_probes + 1]
         ok = (c_lo > kth) & (c_hi <= kth) & (w_lo < w_hi)
         lo = torch.where(ok, torch.maximum(w_lo, new_lo), new_lo)
         hi = torch.where(ok, torch.minimum(w_hi, new_hi), new_hi)
@@ -199,6 +211,7 @@ def bip_dual_update_global(
     top_k: int,
     n_iters: int,
     token_mask: Optional[Tensor] = None,  # (n,) bool; False rows invisible
+    axis_names: tuple = (),
     n_bisect: int = 26,
     fanout: int = 1,
     score_bounds: Optional[Tuple[float, float]] = None,
@@ -218,8 +231,15 @@ def bip_dual_update_global(
     (`kth_largest_threshold`). Returns (q, p), or with `with_stats` (q, p,
     t) with t the last iteration's pre-clamp order statistic (q = max(0, t)),
     which the forecaster tracks.
+
+    With `axis_names`, `s` is this rank's (n_local, m) shard and the update
+    runs over the union of the real tokens of every rank of those axes:
+    the capacity index comes from the psum'd real-token count, the
+    bisection bounds (without `score_bounds`) from pmin/pmax, and the
+    order statistic from psum'd counts; the token price p stays local.
     """
     n, m = s.shape
+    axis_names = tuple(axis_names)
     dev = s.device
     if token_mask is None:
         s_m = s
@@ -229,8 +249,9 @@ def bip_dual_update_global(
             token_mask[:, None], s, torch.tensor(-1e30, dtype=s.dtype, device=dev)
         )
         n_real = token_mask.sum(dtype=torch.int64)
-    cap_idx = (n_real * top_k) // m
-    slack = cap_idx >= torch.clamp_min(n_real, 1)
+    n_glob = collectives.psum(n_real, axis_names)
+    cap_idx = (n_glob * top_k) // m
+    slack = cap_idx >= torch.clamp_min(n_glob, 1)
 
     if score_bounds is not None:
         s_lo, s_hi = float(score_bounds[0]), float(score_bounds[1])
@@ -255,13 +276,16 @@ def bip_dual_update_global(
             real = token_mask[:, None]
             lo = torch.amin(torch.where(real, x, torch.inf), dim=0)
             hi = torch.amax(torch.where(real, x, -torch.inf), dim=0)
+        if score_bounds is None:
+            lo, hi = collectives.pmin(lo, axis_names), collectives.pmax(hi, axis_names)
         t = kth_largest_threshold(
-            x, cap_idx, dim=0, n_bisect=n_bisect, lo=lo, hi=hi, fanout=fanout, window=window
+            x, cap_idx, dim=0, n_bisect=n_bisect, axis_names=axis_names, lo=lo, hi=hi,
+            fanout=fanout, window=window,
         )
         t = torch.where(slack, zero, t)  # slack capacity -> price 0
         q = torch.clamp_min(t, 0.0)
     # an all-padding invocation (idle engine step) must not move the dual
-    q = torch.where(n_real > 0, q, q0.to(s.dtype))
+    q = torch.where(n_glob > 0, q, q0.to(s.dtype))
     if with_stats:
         return q, p, t
     return q, p
@@ -279,10 +303,10 @@ def bip_dual_update_threshold(
 ) -> Tuple[Tensor, Tensor]:
     """The sort-free dual update without a token mask: the reference's
     historically named alias of `bip_dual_update_global`. Matches
-    `bip_dual_update` up to the bisection's resolution."""
-    if axis_names:
-        raise NotImplementedError(NO_MESH)
-    return bip_dual_update_global(s, q0, top_k=top_k, n_iters=n_iters, n_bisect=n_bisect, fanout=fanout)
+    `bip_dual_update` up to the bisection's resolution; with `axis_names`,
+    global over the ranks' token shards."""
+    return bip_dual_update_global(s, q0, top_k=top_k, n_iters=n_iters, axis_names=axis_names,
+                                  n_bisect=n_bisect, fanout=fanout)
 
 
 def bip_dual_update_masked(

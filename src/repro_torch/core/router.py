@@ -59,13 +59,15 @@ class DispatchPlan:
         """Per-expert assigned load (m,), pre-capacity, masked rows excluded."""
         return self.offsets[1:] - self.offsets[:-1]
 
-    def pack(self, x: Tensor) -> Tensor:
-        """Gather tokens (n, d) into the (m, capacity, d) expert buffers."""
+    def pack(self, x: Tensor, *, expert_offset: int = 0, n_local: Optional[int] = None) -> Tensor:
+        """Gather tokens (n, d) into the (n_local, capacity, d) buffers of
+        experts expert_offset .. expert_offset + n_local - 1 (default: all
+        m): an expert-parallel rank packs only the experts it owns."""
         nk = self.order.shape[0]
-        m = self.offsets.shape[0] - 1
+        m_loc = (self.offsets.shape[0] - 1) if n_local is None else n_local
         cap = self.capacity
-        slots = torch.arange(m * cap, device=x.device)
-        se = slots // cap
+        slots = torch.arange(m_loc * cap, device=x.device)
+        se = expert_offset + slots // cap
         src_sorted = self.offsets[se] + slots % cap
         valid = src_sorted < self.offsets[se + 1]
         src_tok = self.order[torch.clamp_max(src_sorted, nk - 1)] // self.top_k
@@ -75,19 +77,21 @@ class DispatchPlan:
         # thousands of empty slots
         src_tok = torch.where(valid, src_tok, slots % x.shape[0])
         buf = gather_rows(x, src_tok) * valid[:, None].to(x.dtype)
-        return buf.reshape(m, cap, x.shape[-1])
+        return buf.reshape(m_loc, cap, x.shape[-1])
 
-    def combine(self, y: Tensor, weights: Tensor) -> Tensor:
-        """Gather expert outputs (m, capacity, d) back per (token, slot),
-        weight them, and sum over the k slots."""
-        m, cap, d = y.shape
+    def combine(self, y: Tensor, weights: Tensor, *, expert_offset: int = 0) -> Tensor:
+        """Gather expert outputs (n_local, capacity, d) of experts
+        expert_offset .. back per (token, slot), weight them, and sum over
+        the k slots; slots routed to other experts contribute zero."""
+        m_loc, cap, d = y.shape
         n, k = self.expert_index.shape
-        ok = self.keep.reshape(-1)
-        slot = (self.expert_index * cap + self.pos).reshape(-1)
+        e_rel = self.expert_index - expert_offset
+        ok = (self.keep & (e_rel >= 0) & (e_rel < m_loc)).reshape(-1)
+        slot = (e_rel * cap + self.pos).reshape(-1)
         # a dropped slot reads a row of its own (its product is zeroed), for
         # the gather's backward as in pack
-        spread = torch.arange(n * k, device=y.device) % (m * cap)
-        g = gather_rows(y.reshape(m * cap, d), torch.where(ok, slot, spread))
+        spread = torch.arange(n * k, device=y.device) % (m_loc * cap)
+        g = gather_rows(y.reshape(m_loc * cap, d), torch.where(ok, slot, spread))
         w = weights.reshape(-1, 1).to(y.dtype)
         contrib = torch.where(ok[:, None], g * w, torch.zeros((), dtype=y.dtype, device=y.device))
         return contrib.reshape(n, k, d).sum(dim=1)

@@ -23,6 +23,17 @@ is formed in the plain version's order of fp32 operations. Each wrapper
 counts its launches (`bip_dual_update.launches`,
 `bip_admm_iteration.launches`; `reset_launch_counts()` zeroes both).
 
+The collective form (`bip_dual_update(..., axis_names=)`, sync='global' on a
+mesh; the reference's `kernels/ops.py` with axis_names): `s` is this rank's
+token shard, and the fused launch, which keeps every pass's histograms
+inside one cluster, cannot add other ranks' counts. So it is the plain
+loop over the single-pass mode: per pass one `bip_admm_iteration` launch,
+then the (m, n_bins) counts psum'd over the data axes, then `locate_bin`;
+per iteration q from `q_from_histogram` on the summed counts, with the rank
+floor(n_glob k / m) from the psum'd token count and q = 0 where that rank
+is past n_glob. The summed counts are exact integers in fp32 (below 2^24),
+so every rank locates the order statistic the whole batch gives.
+
 `launch_plan` is the kernel's launch plan in pure Python (rows per CTA and
 per thread, experts per owner, shared bytes); it raises ValueError on what
 the kernel refuses.
@@ -36,7 +47,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.ref_bip import expert_kth_index
+from repro_torch.distributed import collectives
 from repro_torch.kernels import nvcc
 
 Tensor = torch.Tensor
@@ -151,6 +162,15 @@ def device_plan(n: int, m: int, n_bins: int, device: torch.device) -> LaunchPlan
 
 
 # ------------------------------------------------------------ plain versions
+
+
+def expert_kth_index(n: int, k: int, m: int) -> int:
+    """0-based index of the (nk/m + 1)-th largest of n values, or -1 when it
+    falls past the end (capacity slack: q_j must be 0). Defined here, and
+    re-exported by core.ref_bip, so that the kernels import nothing of the
+    routing core that calls them."""
+    idx = (n * k) // m
+    return -1 if idx >= n else idx
 
 
 def histogram_edges(lo: Tensor, hi: Tensor, n_bins: int) -> Tensor:
@@ -279,16 +299,22 @@ def bip_dual_update(
     n_iters: int,
     n_bins: int = 512,
     refine: int = 1,
+    axis_names: tuple = (),
 ) -> Tensor:
     """T ADMM iterations on the (n, m) score matrix. Returns q (m,) fp32.
 
-    A port of the reference's single-device form (src/repro/kernels/ops.py,
-    bip_dual_update without axis_names): per iteration one coarse histogram
-    pass over [-1, 1) and `refine` passes over the located bin. On a CUDA
-    tensor the whole update is one kernel launch (no host sync); on a CPU
-    tensor it is `bip_dual_update_plain`. Capacity slack (rank past the
-    column) returns zeros without a launch."""
+    A port of the reference's src/repro/kernels/ops.py, bip_dual_update:
+    per iteration one coarse histogram pass over [-1, 1) and `refine`
+    passes over the located bin. Without axis_names, on a CUDA tensor the
+    whole update is one kernel launch (no host sync); on a CPU tensor it is
+    `bip_dual_update_plain`. Capacity slack (rank past the column) returns
+    zeros without a launch. With axis_names it is the collective form (see
+    the module doc): (refine + 1) * n_iters single-pass launches and as
+    many count psums."""
     _check("bip_dual_update", s, top_k, q0=q0)
+    if axis_names:
+        return _dual_update_collective(s, q0, top_k=top_k, n_iters=n_iters, n_bins=n_bins,
+                                       refine=refine, axis_names=tuple(axis_names))
     n, m = s.shape
     if s.device.type == "cpu":
         return bip_dual_update_plain(s, q0, top_k=top_k, n_iters=n_iters, n_bins=n_bins,
@@ -304,6 +330,29 @@ def bip_dual_update(
     _launch(s.float().contiguous(), q0.float().contiguous(), None, None, top_k=top_k, rank=rank,
             n_iters=n_iters, refine=refine, n_bins=n_bins, q_out=q)
     bip_dual_update.launches += 1
+    return q
+
+
+def _dual_update_collective(s, q0, *, top_k, n_iters, n_bins, refine, axis_names) -> Tensor:
+    """The collective form: the single-pass loop with the counts psum'd."""
+    n, m = s.shape
+    if n_iters < 0 or refine < 0:
+        raise ValueError(f"bip_dual_update: n_iters={n_iters}, refine={refine} must be >= 0")
+    n_glob = collectives.psum(torch.tensor(n, dtype=torch.int64, device=s.device), axis_names)
+    rank = (n_glob * top_k) // m  # the tensor counterpart of expert_kth_index
+    s32 = s.float().contiguous()
+    q = q0.float()
+    for _ in range(n_iters):
+        lo, hi = _bounds(None, None, m, s.device)
+        for _pass in range(refine + 1):
+            _p, cnt = bip_admm_iteration(s32, q, top_k=top_k, n_bins=n_bins, lo=lo, hi=hi)
+            cnt = collectives.psum(cnt, axis_names)
+            cur_lo, cur_hi = lo, hi  # the bounds this cnt was computed over
+            bin_lo, bin_hi, found = locate_bin(cnt, rank, n_bins, lo, hi)
+            lo = torch.where(found, bin_lo, lo)
+            hi = torch.where(found, bin_hi, hi)
+        q = q_from_histogram(cnt, rank, n_bins, lo=cur_lo, hi=cur_hi)
+        q = torch.where(rank >= n_glob, torch.zeros_like(q), q)  # capacity slack
     return q
 
 

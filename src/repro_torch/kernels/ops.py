@@ -1,7 +1,8 @@
 """Public wrappers around the port's kernels (model-path entry points).
 
     bip_dual_update(s, q0, top_k, n_iters)   T ADMM dual iterations: one K3
-                                             launch (bip_admm.py)
+                                             launch (bip_admm.py); with
+                                             axis_names its collective form
     expert_ffn(x, w_gate, w_up, w_down)      the grouped SwiGLU FFN on K1/K2,
                                              differentiable: its backward is
                                              eight K2 launches over views

@@ -35,7 +35,9 @@ in order, then in reverse order, and reports each method's steady step
 p50 per pass, so a difference between methods can be told from drift.
 Results go to --out only; a path named BENCH_*.json is refused (those are
 the reference's records). --sync/--mesh (the cross-shard lens) raise
-NotImplementedError: multi-GPU is ROADMAP.md queue 1, item 7.
+NotImplementedError: the sweep on a mesh is the next slice of the port's
+mesh work (ROADMAP.md queue 1, item 7); the sharded training it would
+drive is ported (training.loop, `launch.train --mesh`).
 """
 from __future__ import annotations
 
@@ -58,8 +60,10 @@ BATCH, SEQ_LEN = 8, 64
 # full width: the training shape of chip_smoke.py (8192 routed tokens/layer)
 FULL_BATCH, FULL_SEQ = 16, 512
 
-_NO_MESH = ("the cross-shard sweep (--sync/--mesh) needs multi-GPU, which is not ported yet "
-            "(ROADMAP.md, queue 1, item 7)")
+_NO_MESH = ("the cross-shard sweep (--sync/--mesh) is the next slice of the port's mesh work: "
+            "balance_sweep on a mesh, after the engine's mesh= (ROADMAP.md, queue 1, item 7); "
+            "sharded training itself runs through `python -m torch.distributed.run ... "
+            "repro_torch.launch.train --mesh DxM`")
 
 
 def sweep_cfg(arch: str):
@@ -471,8 +475,8 @@ def main(argv=None) -> int:
                     help="passes over the methods, alternating order (sweep mode)")
     ap.add_argument("--out", default=None, help="write the results JSON here (not BENCH_*.json)")
     ap.add_argument("--sync", default=None, choices=["local", "global", "both"],
-                    help="the cross-shard sweep: not ported (multi-GPU)")
-    ap.add_argument("--mesh", default=None, metavar="DxM", help="the cross-shard sweep's mesh: not ported")
+                    help="the cross-shard sweep: the next slice (raises)")
+    ap.add_argument("--mesh", default=None, metavar="DxM", help="the cross-shard sweep's mesh: the next slice (raises)")
     args = ap.parse_args(argv)
     if args.sync or args.mesh:
         raise NotImplementedError(_NO_MESH)

@@ -37,9 +37,25 @@ writes a torch.profiler Chrome trace of steps N..M into ./profile.
 Every --arch trains (the reference's twelve configurations): vlm and
 encdec batches carry their seeded patch/frame stubs onto the device, and
 ssm/hybrid models refuse --pack-mode pack_nocross, as the reference's (the
-mamba recurrence would cross document boundaries). The reference's mesh
-and pod flags (--mesh, --production, --multi-pod, --coordinator,
---num-hosts, --host-id) are not ported (ROADMAP.md, queue 1, item 7).
+mamba recurrence would cross document boundaries).
+
+A mesh (--mesh DxM: D-way data x M-way expert parallelism), one process
+per rank:
+
+    python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch minimind-moe-16e --mesh 2x2 [--sync global]
+
+Each rank binds cuda:{local rank % cards} (NCCL when every rank has a card
+of its own, gloo when ranks share one; --device cpu: gloo on the CPU), cuts
+the seeded global batch to its rows and the state to its blocks
+(training.loop), the MoE layers take the config's expert-parallel path
+(moe_impl; 'auto' = ep2ds, as the reference), and rank 0 prints the log
+and the summary. On a mesh,
+--sync global keeps K3 on: the dual runs in its collective form (counts
+psum'd over the data ranks). Checkpoints (--ckpt-dir) and --micro > 1 on a
+mesh are the next slice and raise. The reference's TPU-pod flags
+(--production, --multi-pod, --coordinator, --num-hosts, --host-id) are not
+ported: they set up TPU pods.
 """
 from __future__ import annotations
 
@@ -192,14 +208,21 @@ def main(argv=None, *, config_fields=None):
     ap.add_argument("--profile", default=None, metavar="N:M",
                     help="capture a torch.profiler trace of train steps [N, M] "
                          "into ./profile (Chrome trace format)")
+    # mesh
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="D-way data x M-way expert-parallel mesh over the ranks of "
+                         "torch.distributed.run (D*M processes)")
     args = ap.parse_args(argv)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
+    if args.mesh and (args.ckpt_dir or args.micro > 1):
+        ap.error("--ckpt-dir and --micro > 1 on a mesh are the next slice of the port")
 
     from repro_torch import configs, resolve_device
     from repro_torch.core import get_balancer
     from repro_torch.data import ShardedTextLoader, SyntheticBatchStream, make_batches, resolve_shards
-    from repro_torch.models import Model
+    from repro_torch.distributed import make_mesh_ctx
+    from repro_torch.models import build_model
     from repro_torch.robustness import FaultPlan, GuardConfig
     from repro_torch.telemetry import Profiler, TrainTelemetry, open_sink, profile_window
     from repro_torch.training import evaluate_ppl, train_loop
@@ -210,7 +233,22 @@ def main(argv=None, *, config_fields=None):
         except ValueError as e:
             ap.error(str(e))
     window = profile_window(args.profile)  # a bad spec fails before any work
-    device = resolve_device(args.device)
+    mesh = None
+    lead = True  # the rank that prints and writes
+    if args.mesh:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import init_distributed, make_host_mesh, parse_mesh
+
+        try:
+            shape = parse_mesh(args.mesh)
+        except ValueError:
+            ap.error(f"--mesh {args.mesh!r}: expected DxM, e.g. 2x2")
+        device = init_distributed(args.device)
+        mesh = make_host_mesh(*shape)
+        lead = dist.get_rank() == 0
+    else:
+        device = resolve_device(args.device)
     cfg = configs.reduced_for_smoke(args.arch) if args.reduced else configs.get(args.arch)
     cfg = dataclasses.replace(cfg, **(config_fields or {}))
     sync = args.sync or cfg.routing.sync
@@ -225,8 +263,9 @@ def main(argv=None, *, config_fields=None):
         forecast_decay=cfg.routing.forecast_decay if args.forecast_decay is None else args.forecast_decay,
         forecast_margin=cfg.routing.forecast_margin if args.forecast_margin is None else args.forecast_margin,
         guard_duals=args.guard_duals or cfg.routing.guard_duals,
-        # without a mesh, sync='global' is the bisection dual (K3 off, K1/K2 on)
-        use_kernel=sync != "global",
+        # without a mesh, sync='global' is the bisection dual (K3 off, K1/K2
+        # on); on a mesh it is K3's collective form
+        use_kernel=sync != "global" or mesh is not None,
         ffn_kernel=True,
     )
     cfg = dataclasses.replace(cfg, routing=routing)
@@ -234,10 +273,13 @@ def main(argv=None, *, config_fields=None):
         import torch
 
         cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
-    model = Model(cfg, device=device)
-    print(f"training {cfg.name} [{cfg.family}] method={cfg.routing.strategy} "
-          f"sync={cfg.routing.sync} device={device} micro={args.micro} remat={cfg.remat} "
-          f"data={args.data or 'synthetic'}")
+    model = build_model(cfg, make_mesh_ctx(mesh), device=device)  # mesh None: one device
+    mesh_shape = None if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.shape))
+    if lead:
+        print(f"training {cfg.name} [{cfg.family}] method={cfg.routing.strategy} "
+              f"sync={cfg.routing.sync} device={device} mesh={mesh_shape} "
+              f"moe_impl={cfg.routing.moe_impl if mesh is not None else None} micro={args.micro} "
+              f"remat={cfg.remat} data={args.data or 'synthetic'}")
     faults = None
     if args.inject:
         faults = FaultPlan.from_specs(args.inject)
@@ -253,7 +295,7 @@ def main(argv=None, *, config_fields=None):
         if faults is not None:
             batches = faults.wrap_stream(batches)
     telemetry = sink = None
-    if args.telemetry or window:
+    if (args.telemetry or window) and lead:
         sink = open_sink(args.telemetry)
         telemetry = TrainTelemetry(
             sink=sink,
@@ -269,10 +311,11 @@ def main(argv=None, *, config_fields=None):
         )
     try:
         state, log = train_loop(
-            model, batches, lr=args.lr, total_steps=args.steps, log_every=args.log_every,
+            model, batches, lr=args.lr, total_steps=args.steps,
+            log_every=args.log_every if lead else 0,
             microbatches=args.micro, ckpt_dir=args.ckpt_dir,
             ckpt_every=args.ckpt_every or (args.steps if args.ckpt_dir else 0),
-            resume=args.resume, guard=guard, faults=faults, telemetry=telemetry,
+            resume=args.resume, guard=guard, faults=faults, telemetry=telemetry, mesh=mesh,
         )
     finally:
         if sink is not None:
@@ -289,17 +332,23 @@ def main(argv=None, *, config_fields=None):
         ), 4)
     else:
         test = make_batches(cfg, args.batch, args.seq_len, 4, split="test", device=device)
+    test_ppl = evaluate_ppl(model, state, test)  # a collective on a mesh: every rank runs it
+    if mesh is not None:
+        dist.destroy_process_group()
+    if not lead:
+        return 0
     summary = {
         "arch": cfg.name,
         "method": cfg.routing.strategy,
         "sync": cfg.routing.sync,
         "device": str(device),
+        "mesh": mesh_shape,
         "microbatches": args.micro,
         "data": args.data,
         "pack_mode": args.pack_mode if args.data else None,
         "losses": log.losses,
         **log.summary(),
-        ("train_corpus_ppl" if args.data else "test_ppl"): evaluate_ppl(model, state, test),
+        ("train_corpus_ppl" if args.data else "test_ppl"): test_ppl,
     }
     print(json.dumps(summary, indent=1, default=float))
     if args.out_json:

@@ -30,6 +30,20 @@ embeds tokens only (the vlm patch prefix reaches `forward` alone) and the
 slot cache refuses encdec. `prefill_chunk(..., positions=, segments=,
 write_slots=, cache_rows=)` takes the packed multi-request layout
 (common._attention_chunk_packed) on attention-only stacks.
+
+On a device mesh (`build_model(cfg, mesh_ctx)`, mesh_ctx from
+distributed.make_mesh_ctx) the model is one rank's share of an SPMD
+program: `params` are this rank's blocks as distributed.param_specs lays
+them out (build_model puts that spec tree on the MeshCtx), the batch is
+its rows of the global batch (or the whole batch when it does not split
+over the data axes: MeshCtx.tokens_sharded False), and
+every leaf but the expert weights is all-gathered at use
+(collectives.gather_leaf, ZeRO-3: the gradient comes back as this rank's
+block, summed over the data ranks). The dense layers then run on every
+rank of the model axis alike (no tensor parallelism yet) and the MoE
+layers through moe.moe_ffn's expert-parallel paths. The loss is the mean
+over the global batch. Serving (init_slot_cache, prefill_chunk) stays on
+one device.
 """
 from __future__ import annotations
 
@@ -38,11 +52,14 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives, sharding
 from repro_torch.models import common, mamba2, moe, stack
+from repro_torch.models.stack import MeshCtx
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -92,12 +109,63 @@ def _apply_encoder(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     return common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
 
 
+class _OnMeta(TorchFunctionMode):
+    """Every tensor factory with a device makes a meta tensor (shape and
+    dtype, no storage) and draws nothing."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+            kwargs.pop("generator", None)
+        return func(*args, **kwargs)
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The params tree of `cfg` as meta tensors: every leaf's shape and
+    dtype with no storage (the counterpart of jax.eval_shape(model.init)),
+    for the sharding rules at any size."""
+    with _OnMeta():
+        return Model(cfg, device="cpu").init(0)
+
+
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
 class Model:
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", mesh_ctx: Optional[MeshCtx] = None):
         cfg.validate()
         stack.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh_ctx = mesh_ctx if mesh_ctx is not None else MeshCtx()
+        if self.mesh_ctx.mesh is not None and self.mesh_ctx.param_specs is None:
+            raise ValueError("a model on a mesh needs its params' layout: build it with "
+                             "build_model(cfg, make_mesh_ctx(mesh))")
+
+    # ------------------------------------------------------------- mesh
+
+    def _params_at_use(self, params: Params) -> Params:
+        """Every leaf but the expert weights gathered whole from this rank's
+        block; its gradient is summed over the data ranks when the batch is
+        split over them (the work differs there) and taken as the rank's
+        block over the model axis (the dense work is the same there)."""
+        mc = self.mesh_ctx
+        varying = tuple(mc.data_axes) if mc.tokens_sharded else ()
+
+        def use(leaf, spec, keys):
+            if "moe" in keys and keys[-1] in _EXPERT_LEAVES:
+                return leaf  # moe.moe_ffn's paths take the stored blocks
+            return collectives.gather_leaf(leaf, spec, mc.mesh, varying)
+
+        def walk(tree, specs, keys):
+            if isinstance(tree, dict):
+                return {k: walk(v, specs[k], keys + (k,)) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [walk(v, sp, keys) for v, sp in zip(tree, specs)]
+            return use(tree, specs, keys)
+
+        return walk(params, mc.param_specs, ())
 
     # ------------------------------------------------------------- init
 
@@ -159,8 +227,13 @@ class Model:
         each document (routing does not: expert capacity is contested across
         the whole batch, as in the reference). Prefix models ignore
         segments; ssm/hybrid models refuse them (ValueError): the mamba
-        recurrence would carry state across a document boundary."""
+        recurrence would carry state across a document boundary.
+
+        On a mesh, `params` and `batch` are this rank's (see the module
+        doc)."""
         cfg = self.cfg
+        if self.mesh_ctx.mesh is not None:
+            params = self._params_at_use(params)
         x, n_prefix = self._embed_inputs(params, batch)
         enc_out = self._encode(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -173,7 +246,7 @@ class Model:
             )
         x, new_states, aux, mets = stack.apply_stack(
             params["stack"], x, router_states, cfg, positions=positions,
-            segments=segments, enc_out=enc_out,
+            segments=segments, enc_out=enc_out, mesh_ctx=self.mesh_ctx,
         )
         x = common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
         if n_prefix:
@@ -184,14 +257,24 @@ class Model:
     def loss_fn(self, params: Params, batch: Dict[str, Tensor], router_states: list):
         """Masked next-token cross entropy (labels < 0 are ignored) plus the
         balancers' aux loss. Returns (loss, (new router states, metrics))
-        with metrics gaining 'ce_loss', 'aux_loss' and 'perplexity'."""
+        with metrics gaining 'ce_loss', 'aux_loss' and 'perplexity'. On a
+        mesh with the batch split over data, each rank adds its rows' sum
+        over the global count of valid labels, and the psum of those is the
+        loss every rank returns (its cotangent reaches each rank's rows
+        unchanged)."""
         logits, new_states, aux, mets = self.forward(params, batch, router_states)
         labels = batch["labels"]
         valid = labels >= 0
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, torch.clamp_min(labels, 0)[..., None])[..., 0]
         nll = torch.where(valid, nll, torch.zeros_like(nll))
-        ce = torch.sum(nll) / torch.clamp_min(valid.sum(), 1).float()
+        mc = self.mesh_ctx
+        if mc.mesh is not None and mc.tokens_sharded and mc.data_axes:
+            with collectives.axis_env(mc.mesh):
+                n_valid = collectives.psum(valid.sum(), mc.data_axes)
+                ce = collectives.psum(torch.sum(nll) / torch.clamp_min(n_valid, 1).float(), mc.data_axes)
+        else:
+            ce = torch.sum(nll) / torch.clamp_min(valid.sum(), 1).float()
         loss = ce + aux
         mets = dict(mets)
         mets.update(ce_loss=ce, aux_loss=aux, perplexity=torch.exp(ce))
@@ -354,6 +437,10 @@ class Model:
         conv state advance strictly left to right per row and cannot host
         interleaved streams."""
         cfg = self.cfg
+        if self.mesh_ctx.mesh is not None:
+            raise NotImplementedError(
+                "serving on a mesh (the engine's mesh=) is the next slice of the port; "
+                "a mesh model trains only")
         packed = None
         if segments is not None:
             bad = {k for k, _ in cfg.layer_kinds() if k.replace("+shared", "") not in ("global", "local")}
@@ -401,3 +488,13 @@ class Model:
         logits, cache, states, _ = self.prefill_chunk(params, tokens, cache, router_states)
         return logits, cache, states
 
+
+
+def build_model(cfg: ModelConfig, mesh_ctx: MeshCtx = MeshCtx(), device="cuda") -> Model:
+    """The model of `cfg`, laid out by `mesh_ctx` (MeshCtx(): one device).
+    On a mesh, the spec tree of the params (distributed.param_specs) is
+    worked out here, once, and carried on the model's MeshCtx."""
+    if mesh_ctx.mesh is not None and mesh_ctx.param_specs is None:
+        specs = sharding.param_specs(abstract_params(cfg), cfg, mesh_ctx.mesh)
+        mesh_ctx = dataclasses.replace(mesh_ctx, param_specs=specs)
+    return Model(cfg, device=device, mesh_ctx=mesh_ctx)

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import init_router_state
+from repro_torch.distributed.collectives import MeshCtx
 from repro_torch.models import common, mamba2, moe
 
 Params = Dict[str, Any]
@@ -149,11 +150,14 @@ def apply_layer(
     segments: Optional[torch.Tensor] = None,
     enc_out: Optional[torch.Tensor] = None,
     shared_params: Optional[Params] = None,
+    mesh_ctx: Optional[MeshCtx] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor, Dict]:
     """One layer over whole sequences. Returns (x, new_router_state,
     aux_loss, metrics); MoE layers report 'max_vio', 'load' and the router's
     'dropped_frac_cap1' and 'q_abs_max' (and, with the bip forecaster,
-    'forecast_err' / 'forecast_hit'), as the reference's local path."""
+    'forecast_err' / 'forecast_hit'), as the reference's local path; on a
+    mesh (`mesh_ctx`, the MoE FFN through moe.moe_ffn's expert-parallel
+    paths) the first three."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     mets: Dict[str, torch.Tensor] = {}
     b, s, d = x.shape
@@ -175,8 +179,8 @@ def apply_layer(
         x = x + _maybe_post(p, "post_ffn_norm", h, cfg)
     elif ffn_kind == "moe":
         xin = common.rmsnorm(p["ffn_norm"], x, cfg.rms_norm_eps)
-        y, router_state, aux_moe, moe_mets = moe.moe_ffn_local(
-            p["moe"], xin.reshape(b * s, d), router_state, cfg
+        y, router_state, aux_moe, moe_mets = moe.moe_ffn(
+            p["moe"], xin.reshape(b * s, d), router_state, cfg, mesh_ctx,
         )
         h = y.reshape(b, s, d) + _residual_mlps(p, xin, cfg)
         x = x + h
@@ -216,6 +220,7 @@ def apply_stack(
     positions: Optional[torch.Tensor] = None,
     segments: Optional[torch.Tensor] = None,
     enc_out: Optional[torch.Tensor] = None,
+    mesh_ctx: Optional[MeshCtx] = None,
 ) -> Tuple[torch.Tensor, List[Optional[Dict]], torch.Tensor, Dict[str, torch.Tensor]]:
     """Run every layer in order. Returns (x, new_router_states, aux_total,
     metrics) with metrics['<key>_per_layer'] stacked over the MoE layers in
@@ -231,7 +236,7 @@ def apply_stack(
         for (mixer, ffn), p, st in zip(kinds[lo:hi], params["layers"][lo:hi], states):
             x, st, aux, mets = apply_layer(
                 p, x, cfg, mixer, ffn, st, positions=positions, segments=segments,
-                enc_out=enc_out, shared_params=shared,
+                enc_out=enc_out, shared_params=shared, mesh_ctx=mesh_ctx,
             )
             out_states.append(st)
             auxes.append(aux)

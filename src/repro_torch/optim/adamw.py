@@ -102,6 +102,7 @@ def adamw_update(
     cfg: AdamWConfig,
     decay: Dict[str, bool],
     guard: Optional[Tensor] = None,
+    grad_norm: Optional[Tensor] = None,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """One AdamW step, in place. `grads` are in the order of
     tree_leaves(params). Returns (params, opt_state, info) with info
@@ -113,11 +114,14 @@ def adamw_update(
     `guard` (a device bool scalar) makes the step conditional without a
     host sync: ok = guard & isfinite(grad_norm), every param and moment
     write is torch.where(ok, new, old), info gains 'step_ok' (ok) and
-    `step` is NOT advanced: the caller advances it once it has read ok."""
+    `step` is NOT advanced: the caller advances it once it has read ok.
+
+    `grad_norm` replaces the norm of `grads` where they are blocks of
+    leaves sharded over a mesh (the caller reduces it over the ranks)."""
     step = opt_state["step"] + 1
     p_paths = tree_paths(params)
     mu_leaves, nu_leaves = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     ok = None if guard is None else guard & torch.isfinite(gnorm)
     keep = (lambda new, old: new) if ok is None else (lambda new, old: torch.where(ok, new, old))  # noqa: E731
     scale = None

@@ -13,7 +13,9 @@ its next chunks SPREAD across the free rows (all-global stacks only:
 write-then-attend makes this exact), and short fresh prompts tuck into
 other rows' padding columns as extra segments to free more rows. The
 packed step runs only when it spreads; otherwise the one-row-per-slot
-step runs unchanged. The device mesh is not ported yet.
+step runs unchanged. Serving on a device mesh (the reference engine's
+mesh=) is the next slice of the port's mesh work; a model built on a mesh
+refuses the serving calls (Model.prefill_chunk).
 
 `greedy_generate` is the reference's batched greedy decoding: through the
 engine for the token families, through the per-token path

@@ -33,13 +33,25 @@ compute dtype at its use site, so gradients arrive in fp32.
   trajectory is bitwise the one without it. The step's phases carry the
   reference's profiler span names ('train/fwd_bwd', 'train/apply').
 
+* **A mesh** - `compile_train_step(..., mesh=)` / `train_loop(mesh=)` run
+  the step as one rank of an SPMD program over a torch DeviceMesh (the
+  model from `build_model(cfg, make_mesh_ctx(mesh))`): every TrainState
+  leaf at rest is this rank's block as `distributed.train_state_specs`
+  lays it out (params and both moments; router states and the step
+  replicated), the batch is the rank's rows of the global batch
+  (`distributed.batch_layout`; the step tells the model's MeshCtx whether
+  the batch split), the gradients arrive as blocks (the model
+  gathers leaves at use), AdamW updates the blocks, and the clipping norm
+  is psum'd over the ranks that hold distinct blocks of each leaf.
+  Checkpoints and microbatches on a mesh are the next slice (they raise).
+
 Differences from the reference, by design of an eager port: the AdamW
 update is in place (params and moments are updated under torch.no_grad();
 there is no donation to ask for), and the step's controls are host values.
-Everything on a mesh is not ported yet (ROADMAP.md, queue 1, item 7).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import re
 import signal
@@ -53,6 +65,7 @@ import torch
 from repro_torch.convert import decay_mask
 from repro_torch.core.metrics import BalanceTracker
 from repro_torch.data.prefetch import batch_to_torch
+from repro_torch.distributed import batch_layout, collectives, shard_tree, train_state_specs
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw as _adamw
 from repro_torch.optim.schedules import linear_warmup_cosine
@@ -65,6 +78,11 @@ from repro_torch.telemetry.trace import named_span
 CTRL_INJECT_NAN = 0  # > 0: fault injection - scale the loss (hence grads) by NaN
 CTRL_FORCE_SKIP = 1  # > 0: keep the pre-step state (planned skip / replay)
 CTRL_LR_SCALE = 2    # multiplier on the scheduled LR (guard's reduce-LR ladder)
+
+
+def default_controls() -> np.ndarray:
+    """The guarded step's controls when the host asks for nothing."""
+    return np.array([0.0, 0.0, 1.0], np.float32)
 
 
 @dataclasses.dataclass
@@ -137,6 +155,32 @@ def _select(ok: torch.Tensor, new, old):
     return None if new is None else torch.where(ok, new, old)
 
 
+def _spec_leaves(params, specs) -> List[tuple]:
+    """The specs of `params`' leaves in the order of tree_leaves(params)
+    (a spec is a tuple, so the walk follows the params tree)."""
+    if isinstance(params, dict):
+        return [sp for k in sorted(params) for sp in _spec_leaves(params[k], specs[k])]
+    if isinstance(params, (list, tuple)):
+        return [sp for v, s in zip(params, specs) for sp in _spec_leaves(v, s)]
+    return [] if params is None else [specs]
+
+
+def sharded_grad_norm(grads: List[torch.Tensor], specs: List[tuple], mesh) -> torch.Tensor:
+    """The global gradient norm from this rank's blocks: each leaf's squared
+    norm is summed over the ranks of the axes its spec splits it over, so a
+    block held by several ranks (replicated over the others) counts once.
+    One psum per distinct set of axes."""
+    order = list(collectives.mesh_shape(mesh))
+    by_axes: Dict[tuple, torch.Tensor] = {}
+    for g, spec in zip(grads, specs):
+        axes = tuple(sorted({a for e in spec for a in collectives.spec_axes(e)}, key=order.index))
+        sq = torch.sum(torch.square(g.float()))
+        by_axes[axes] = sq if axes not in by_axes else by_axes[axes] + sq
+    with collectives.axis_env(mesh):
+        total = sum(collectives.psum(v, axes) for axes, v in by_axes.items())
+    return torch.sqrt(total)
+
+
 def make_train_step(
     model: Model,
     opt_cfg: _adamw.AdamWConfig,
@@ -167,9 +211,18 @@ def make_train_step(
     `unused_leaves` (an encdec model's encoder cross leaves); they get zero
     gradients, so AdamW decays them as the reference's does. Any other
     leaf the loss does not reach, or an allowed one it does, raises
-    RuntimeError naming its path."""
+    RuntimeError naming its path.
+
+    A model on a mesh (`build_model(cfg, mesh_ctx)`) makes this one rank's
+    step: `state` holds its blocks, `batch` its rows of the global batch
+    (or the whole batch on every rank: MeshCtx.tokens_sharded False, see
+    compile_train_step), and the clipping norm is `sharded_grad_norm`. No
+    microbatches on a mesh yet."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    mesh = model.mesh_ctx.mesh
+    if mesh is not None and microbatches > 1:
+        raise NotImplementedError("microbatches on a mesh are the next slice of the port")
 
     def fwd_bwd(params, leaves, batch, router, inject_nan):
         with named_span("train/fwd_bwd"):
@@ -191,11 +244,14 @@ def make_train_step(
 
     decay: Dict[str, bool] = {}  # AdamW's weight-decay mask, built at the first step
     no_grad_ok: Set[str] = set()  # the leaves the loss never reaches, built with `decay`
+    leaf_specs: List[tuple] = []  # on a mesh: each leaf's spec, in tree_leaves order
 
     def run(state: TrainState, batch, controls):
         if not decay:
             decay.update(decay_mask(state.params))
             no_grad_ok.update(unused_leaves(model.cfg, state.params))
+            if mesh is not None:
+                leaf_specs.extend(_spec_leaves(state.params, model.mesh_ctx.param_specs))
         inject, force_skip, lr_scale = (False, False, 1.0) if controls is None else (
             float(controls[CTRL_INJECT_NAN]) > 0,
             float(controls[CTRL_FORCE_SKIP]) > 0,
@@ -224,9 +280,10 @@ def make_train_step(
         guard = None
         if controls is not None:
             guard = torch.isfinite(mets["loss"]) & (not force_skip)
+        gnorm = None if mesh is None else sharded_grad_norm(list(grads), leaf_specs, mesh)
         with named_span("train/apply"):
             _, _, info = _adamw.adamw_update(list(grads), state.opt_state, state.params, lr, opt_cfg,
-                                             guard=guard, decay=decay)
+                                             guard=guard, decay=decay, grad_norm=gnorm)
         mets.update(info)
         if controls is None:
             state.router_states = new_router
@@ -255,6 +312,52 @@ def make_train_step(
         return new_state, mets, buf
 
     return instrumented_step
+
+
+def compile_train_step(
+    model: Model,
+    opt_cfg: _adamw.AdamWConfig,
+    lr_fn: Callable[[int], float],
+    state: TrainState,
+    batch: Dict[str, Any],
+    *,
+    mesh=None,
+    microbatches: int = 1,
+    st_specs=None,
+    b_specs=None,
+    guarded: bool = False,
+    telemetry: Optional[TrainTelemetry] = None,
+):
+    """The train step for `state` and batches shaped like `batch` (the
+    reference's jit with explicit shardings; here the step is built, not
+    compiled). Without a mesh it is `make_train_step`. With one the model
+    must be laid out on it (`build_model(cfg, make_mesh_ctx(mesh))`) and
+    the step expects the rank's blocks of a state laid out as
+    `distributed.train_state_specs` gives (`st_specs`, where the caller
+    has them, is checked against the model's layout: ValueError) and the
+    rank's rows of a batch laid out by `b_specs` (default:
+    distributed.batch_layout of `batch`)."""
+    if mesh is not None:
+        if model.mesh_ctx.mesh is not mesh:
+            raise ValueError("compile_train_step(mesh=): build the model with "
+                             "build_model(cfg, make_mesh_ctx(mesh)) on the same mesh")
+        if st_specs is not None and st_specs.params != model.mesh_ctx.param_specs:
+            raise ValueError("compile_train_step(mesh=): st_specs lay the params out otherwise than "
+                             "the model's MeshCtx.param_specs")
+        model = _on_batch_layout(model, batch_layout(model.cfg, mesh, batch) if b_specs is None else b_specs)
+    return make_train_step(model, opt_cfg, lr_fn, microbatches=microbatches, guarded=guarded,
+                           telemetry=telemetry)
+
+
+def _on_batch_layout(model: Model, b_specs) -> Model:
+    """`model` with its MeshCtx saying whether a batch laid out by `b_specs`
+    is split over the data axes (each rank its rows) or replicated."""
+    split = b_specs["tokens"][0] is not None
+    if split == model.mesh_ctx.tokens_sharded:
+        return model
+    out = copy.copy(model)
+    out.mesh_ctx = dataclasses.replace(model.mesh_ctx, tokens_sharded=split)
+    return out
 
 
 class TrainLog:
@@ -347,9 +450,11 @@ def train_loop(
     guard=None,
     faults=None,
     telemetry: Optional[TrainTelemetry] = None,
+    mesh=None,
 ) -> Tuple[TrainState, TrainLog]:
-    """Host loop on one device: the reference's schedule wiring (AdamW from
-    the model config, linear warmup then cosine to 10% of `lr`), stopping
+    """Host loop of one device, or of one rank of a mesh: the reference's
+    schedule wiring (AdamW from the model config, linear warmup then cosine
+    to 10% of `lr`), stopping
     at `total_steps` even for an endless stream (it never pulls a batch it
     will not train on). Each step's wall time is taken around work that
     ends in reading the loss, so it covers the device work of the step.
@@ -383,12 +488,25 @@ def train_loop(
       loop's events as they happen (each once, in order), and drives its
       profiler window; its partial last window is drained in the `finally`
       block. Closing the sink is the caller's job.
+    * `mesh` (a DeviceMesh; the model from `build_model(cfg,
+      make_mesh_ctx(mesh))`): every rank runs this loop on the same global
+      batches; a given `state` is the whole one and is cut to the rank's
+      blocks (`distributed.shard_tree`), a fresh one is initialised whole
+      and cut, each batch is cut to the rank's rows, and the returned state
+      holds the rank's blocks (`distributed.unshard_tree` gathers them).
     """
     opt_cfg = _adamw.from_model_config(model.cfg)
+    if mesh is not None and (ckpt_dir is not None or resume):
+        raise NotImplementedError("checkpoints of a sharded state are the next slice of the port")
     # the step is built before any data is read: a bad microbatch count fails first
     guarded = guard is not None or (faults is not None and faults.get("nan_grad") is not None)
-    step_fn = make_train_step(model, opt_cfg, linear_warmup_cosine(lr, warmup_steps, total_steps),
-                              microbatches=microbatches, guarded=guarded, telemetry=telemetry)
+    lr_fn = linear_warmup_cosine(lr, warmup_steps, total_steps)
+    step_fn = None
+    if mesh is None:
+        step_fn = make_train_step(model, opt_cfg, lr_fn, microbatches=microbatches, guarded=guarded,
+                                  telemetry=telemetry)
+    elif microbatches > 1:
+        raise NotImplementedError("microbatches on a mesh are the next slice of the port")
 
     manager = None
     if ckpt_dir is not None:
@@ -405,7 +523,18 @@ def train_loop(
         if latest_step(ckpt_dir) is not None:
             start_step, state = manager.restore_train_state(model.cfg, device=model.device)
             data_state = manager.restore_data_state(start_step)
-    if state is None:
+    st_specs = b_specs = None
+    if mesh is not None:
+        if state is None:  # initialised whole, then cut; the moments start as blocks
+            pspecs = model.mesh_ctx.param_specs
+            params = shard_tree(model.init(seed), pspecs, mesh)
+            state = TrainState(params, _adamw.adamw_init(params, opt_cfg), model.init_router_states())
+            st_specs = TrainState(params=pspecs, opt_state={"step": (), "mu": pspecs, "nu": pspecs},
+                                  router_states=None)
+        else:
+            st_specs = train_state_specs(state, model.cfg, mesh)
+            state = shard_tree(state, st_specs, mesh)
+    elif state is None:
         state = init_train_state(model, seed, opt_cfg)
 
     loop_start = 0  # the step index the loop starts at
@@ -473,6 +602,13 @@ def train_loop(
             if i < start_step:
                 continue  # resumed plain iterable: replay-skip the consumed prefix
             batch = batch_to_torch(batch, model.device)
+            if mesh is not None:
+                if step_fn is None:
+                    b_specs = batch_layout(model.cfg, mesh, batch)
+                    step_fn = compile_train_step(model, opt_cfg, lr_fn, state, batch, mesh=mesh,
+                                                 st_specs=st_specs, b_specs=b_specs, guarded=guarded,
+                                                 telemetry=telemetry)
+                batch = shard_tree(batch, b_specs, mesh)
             if telemetry is not None:
                 telemetry.before_step(i)  # the profiler window, if configured
             t0 = time.perf_counter()
@@ -550,10 +686,16 @@ def evaluate_ppl(model: Model, state: TrainState, batches) -> float:
     """Test perplexity with the routing states frozen (each batch routes from
     the trained states; their updates are dropped). Per-batch CE means are
     weighted by each batch's count of valid labels."""
+    mesh = model.mesh_ctx.mesh
     ces, ns = [], []
     for batch in batches:
         batch = batch_to_torch(batch, model.device)
-        _, (_, mets) = model.loss_fn(state.params, batch, state.router_states)
-        ces.append(float(mets["ce_loss"]))
         ns.append(int((batch["labels"] >= 0).sum()))
+        run = model
+        if mesh is not None:  # a rank of a mesh: its rows, and its blocks of the state
+            b_specs = batch_layout(model.cfg, mesh, batch)
+            run = _on_batch_layout(model, b_specs)
+            batch = shard_tree(batch, b_specs, mesh)
+        _, (_, mets) = run.loss_fn(state.params, batch, state.router_states)
+        ces.append(float(mets["ce_loss"]))
     return float(np.exp(np.average(ces, weights=ns)))

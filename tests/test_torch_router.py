@@ -7,6 +7,8 @@ exact integer counts, gathered bounds; a stable argsort).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -207,18 +209,20 @@ def test_balance_metrics_match():
 def test_unmasked_kernel_dual_update_raises():
     """The unmasked use_kernel dual update (the K3 kernel's) raises where it
     cannot run: scores on a device that is neither the CPU nor a GPU, and a
-    mesh's axis_names (multi-device sync is not ported). On CPU tensors it
-    runs the kernel's plain version, and the masked (serving) form runs the
-    plain bisection."""
+    mesh's axis_names with no mesh in scope (distributed.collectives.axis_env;
+    tests/test_torch_mesh.py runs the collective form on one). On CPU
+    tensors it runs the kernel's plain version, and the masked (serving)
+    form runs the plain bisection."""
     from repro_torch.kernels import ops
 
     tc = configs.get("minimind_moe_16e").routing.to_router_config(use_kernel=True)
     meta = torch.zeros(8, 16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.bip_dual_update(meta, torch.zeros(16, device="meta"), top_k=4, n_iters=1)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(RuntimeError, match="outside axis_env"):
         balancers.get_balancer("bip").score_adjust(
-            torch.full((8, 16), 1 / 16), {"q": torch.zeros(16)}, tc, axis_names=("data",)
+            torch.full((8, 16), 1 / 16), {"q": torch.zeros(16)}, dataclasses.replace(tc, sync="global"),
+            axis_names=("data",),
         )
     logits = torch.zeros(8, 16)
     out = router.route(logits, {"q": torch.zeros(16)}, tc)
@@ -263,8 +267,8 @@ def test_public_bip_entry_points_match_reference(name):
         np.testing.assert_allclose(qt.numpy(), np.asarray(qj), atol=res)
         exact, _ = core.bip_dual_update(ts[torch.from_numpy(mask)] if masked else ts, tq0, **kw)
         np.testing.assert_allclose(qt.numpy(), exact.numpy(), atol=3e-5)
-        if not masked:
-            with pytest.raises(NotImplementedError, match="axis_names"):
+        if not masked:  # axis_names need a mesh in scope (tests/test_torch_mesh.py has one)
+            with pytest.raises(RuntimeError, match="outside axis_env"):
                 core.bip_dual_update_threshold(ts, tq0, axis_names=("data",), **kw)
         return
     assert it.dtype == torch.int32

@@ -480,8 +480,8 @@ def test_train_and_serve_clis_with_the_new_flags(tmp_path, monkeypatch, capsys):
     assert all("forecast_hit_per_layer" in r for r in steps)
     traces = list((tmp_path / "profile").glob("*.json"))
     assert len(traces) == 1 and "train/fwd_bwd" in traces[0].read_text()
-    with pytest.raises(SystemExit):  # a mesh flag of the reference stays refused
-        train.main(["--arch", "minimind-moe-16e", "--reduced", "--device", "cpu", "--mesh", "2x1"])
+    with pytest.raises(SystemExit):  # a TPU-pod flag of the reference stays refused
+        train.main(["--arch", "minimind-moe-16e", "--reduced", "--device", "cpu", "--production"])
     capsys.readouterr()
     assert serve.main(["--arch", "minimind-moe-16e", "--reduced", "--device", "cpu", "--requests", "3",
                        "--n-slots", "2", "--chunk", "8", "--gen", "3", "--profile", "1:2"]) == 0

@@ -288,8 +288,10 @@ def test_train_step_refuses_what_is_not_ported(tmp_path):
     """Microbatches, the guarded step, telemetry, the profiler window, the
     router-dual watchdog and the forecaster are ported; what is still
     refused: a batch that does not split into the microbatches
-    (ValueError), and the reference launcher's mesh and pod flags (ROADMAP.md
-    queue 1, item 7), which the port's launcher does not accept."""
+    (ValueError), the reference launcher's TPU-pod flags, which the port's
+    launcher does not accept, and on a mesh (--mesh, tests/
+    test_torch_train_mesh.py) checkpoints, microbatches (the next slice,
+    ROADMAP.md queue 1, item 7) and a malformed shape."""
     tm = Model(_cfgs()[1], device="cpu")
     opt = adamw.from_model_config(tm.cfg)
     step = make_train_step(tm, opt, schedules.constant(1e-3), microbatches=2)
@@ -305,7 +307,8 @@ def test_train_step_refuses_what_is_not_ported(tmp_path):
     from repro_torch.launch import train
 
     base = ["--arch", "minimind-moe-16e", "--reduced", "--device", "cpu", "--steps", "1"]
-    for flags in (["--mesh", "2x1"], ["--production"], ["--multi-pod"], ["--coordinator", "h:1"],
-                  ["--num-hosts", "2"], ["--host-id", "1"]):
+    for flags in (["--production"], ["--multi-pod"], ["--coordinator", "h:1"], ["--num-hosts", "2"],
+                  ["--host-id", "1"], ["--mesh", "2x1", "--micro", "2"],
+                  ["--mesh", "2x1", "--ckpt-dir", str(tmp_path / "ck")], ["--mesh", "2by1"]):
         with pytest.raises(SystemExit):
             train.main(base + flags)
