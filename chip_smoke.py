@@ -215,6 +215,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      step p50, peak memory per rank, and one profiled step with the host
      time inside the collective calls. The K1/K2 operand shapes of (b) are
      checked and timed in phase 7's trace.
+ 18. serving, checkpoints and microbatches on a mesh, minimind-moe-16e at
+     full width: (a) world size 1 over NCCL on a 1x1 mesh, phase 4's 32
+     requests (16 slots x chunk 32; topk and bip) and phase 16's packed
+     set (bip) through ContinuousBatchingEngine(mesh=) against the
+     one-device engine on the same weights, SERVE_MESH_GEN greedy tokens
+     each: tokens and step counts equal, topk's loads equal, bip's load
+     totals equal and L1 within SERVE_MESH_L1, K1/K2 exactly 8 / 8 per
+     step; (b) inside phase 17(b)'s spawn, on the 2x2 mesh: serving
+     (SERVE_MESH_RUNS: topk and bip in bf16, a topk fp32 control and a
+     bip fp32 control with sync='global', 8 slots x chunk 32, capacity
+     factor SERVE_MESH_CAPACITY_FACTOR, two prompts of 256 tokens whose
+     chunks spread onto rows of both data ranks and six of 8-24) against
+     one device: every rank the same tokens, 8 / 8 K1/K2 launches per
+     step on every rank, the topk control's tokens and loads equal and
+     first-token logits within PACKED_FP32_TOL, the bip control's load
+     totals equal, its drift from one device over the run (tokens, the
+     loads' L1, the per-step duals) within MESH_NUDGE_FACTOR times one
+     device's own from params nudged by one ulp (plus SERVE_MESH_L1 and
+     MESH_NUDGE_FLOOR), and its first step's duals within
+     SERVE_STEP0_Q_TOL and loads within SERVE_MESH_L1; the bf16 runs'
+     share of equal tokens printed with steps, step p50, the host time
+     inside collective calls and peak memory per rank; 16e through `ep`
+     in bf16 for CKPT_MESH_AT steps with an async save at the last, the
+     file (read at world 1 on rank 0) bit-equal to the state gathered
+     from the ranks, then a fresh state resumed from it for step
+     CKPT_MESH_AT: loss, q and params bit-equal on every rank to a
+     straight CKPT_MESH_STEPS-step run, exact launches, and the gather,
+     stall, writer and peak-memory numbers; one fp32 step of topk
+     micro 2 against micro 1 (MICRO_TOL) and of bip micro 2 against one
+     device's micro 2 (MESH_STEP0_TOL, with its witnesses).
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
 that outlives it (nvcc and nvidia-smi run to completion; phase 17's ranks
@@ -2432,18 +2462,26 @@ def single_reference(torch, configs, mods, arch, dev, fp32, nudge=False):
     opt = from_model_config(cfg)
     state = init_train_state(model, 0, opt)
     if nudge:
-        gen = torch.Generator(device=dev).manual_seed(1)
-        with torch.no_grad():
-            for _, p in named_leaves(state.params):
-                sign = torch.randint(0, 2, p.shape, generator=gen, device=p.device, dtype=torch.int8)
-                p.mul_(1.0 + 2.0**-23 * (2 * sign.to(p.dtype) - 1))
-                del sign
+        nudge_params(torch, state.params, dev)
     batches = list(make_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, MESH_STEPS, seed=0, device=dev))
     _, rec = step_loop(torch, make_train_step(model, opt, constant(1e-3)), state, batches)
     del model, state, batches
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+def nudge_params(torch, params, dev):
+    """Move every param by about one ulp in place (x (1 +- 2^-23), signs
+    drawn from seed 1): a perturbation of the size of a changed summation
+    order."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for _, p in named_leaves(params):
+            sign = torch.randint(0, 2, p.shape, generator=gen, device=p.device, dtype=torch.int8)
+            p.mul_(1.0 + 2.0**-23 * (2 * sign.to(p.dtype) - 1))
+            del sign
+    return params
 
 
 def step_loop(torch, step_fn, state, batches, shard=None, rec=None):
@@ -2474,13 +2512,13 @@ def step_gaps(sq_params, sq_mu, grad_norm, ref):
             "grad": math.sqrt(sq_mu) / ref["mu_norm"], "update": math.sqrt(sq_params) / ref["update_norm"]}
 
 
-def one_device_first_step(torch, mods, cfg, batch, dev):
+def one_device_first_step(torch, mods, cfg, batch, dev, micro=1):
     """One device's first step of `cfg` from the seed-0 init on `batch`, the
     reference of 17(b)'s step-0 check: its params and Adam first moment
     (tree_leaves order), grad norm, the first moment's and the update's L2
     norms. Then the witnesses, steps from the same init with a gradient
     known to be wrong (twice the loss; half the batch), as their
-    step_gaps to it."""
+    step_gaps to it. `micro`: microbatches per step."""
     Model, init_train_state, make_train_step, from_model_config, constant, tree_leaves = mods
     model = Model(cfg, device=dev)
     opt = from_model_config(cfg)
@@ -2488,7 +2526,7 @@ def one_device_first_step(torch, mods, cfg, batch, dev):
     def first(m, b):
         state = init_train_state(m, 0, opt)
         before = [p.detach().clone() for p in tree_leaves(state.params)]
-        state, mets = make_train_step(m, opt, constant(1e-3))(state, b)
+        state, mets = make_train_step(m, opt, constant(1e-3), microbatches=micro)(state, b)
         params = [p.detach() for p in tree_leaves(state.params)]
         update = math.sqrt(sum(sq_dist(a, z) for a, z in zip(params, before)))
         return {"params": params, "mu": tree_leaves(state.opt_state["mu"]),
@@ -2694,6 +2732,7 @@ def mesh_rank(rank, world, workdir, root, device):
         gc.collect()
         torch.cuda.empty_cache()
     out["runs"] = runs
+    out["p18"] = phase18_rank(torch, np, dist, rank, mesh, dev, workdir)
     with open(Path(workdir) / f"rank{rank}.json", "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -2821,7 +2860,476 @@ def mesh_shared_card(torch, np, configs, mods, tmp, dev="cuda"):
                 failed.append(f"{key}: the witness '{w}' passes the step-0 bounds ({g}): they would not catch it")
     if failed:
         raise AssertionError("(b) " + "; ".join(failed))
-    return launches, k3, controls
+    return launches, k3, controls, ranks
+
+
+# ------------------------------------------------------------------ phase 18
+# serving on a mesh, checkpoints of a sharded state and microbatches on a
+# mesh. 18(a): world 1 over NCCL, mesh 1x1, phase 4's 32 requests and phase
+# 16's packed prompt set; 18(b): inside phase 17(b)'s spawn, the 2x2 mesh
+SERVE_MESH_GEN = 6  # greedy tokens per request in every serving run of phase 18 (few: the time limit)
+SERVE_MESH_SLOTS, SERVE_MESH_CHUNK = 8, 32  # 18(b)
+SERVE_MESH_LONG, SERVE_MESH_SHORT = (256, 256), (6, 8, 24)  # 18(b): two of 256 tokens, six of 8-24
+SERVE_MESH_SEED = 18
+# 18(b): (strategy, fp32 compute, sync; None: the config's, 'local' for
+# bip, whose duals on a mesh are then each data rank's own). The bip fp32
+# control takes sync='global', under which the mesh's duals are one
+# device's (the reference's mesh serving contract)
+SERVE_MESH_RUNS = (("topk", False, None), ("bip", False, None), ("topk", True, None), ("bip", True, "global"))
+SERVE_MESH_L1 = 8  # bip: the loads' L1 drift the reference allows (tests/test_serving_mesh.py:66)
+# 18(b)'s bip fp32 control (sync='global'): the duals are one device's up
+# to rounding, but BIP is LP-degenerate and serving re-solves them on a
+# handful of decode tokens, so marginal tokens flip experts on any change
+# of summation order, sampled tokens feed back, and over the run the mesh
+# and one device part by chaos (one device from its own params nudged by
+# one ulp alike: at full width 8 of 48 tokens, q gaps of 0.37). Over the
+# run, as 17(b)'s controls, the mesh's drift (tokens that differ, the
+# loads' L1, the largest per-step q gap) is held to MESH_NUDGE_FACTOR times
+# that nudged drift (plus SERVE_MESH_L1, MESH_NUDGE_FLOOR['q']). The first
+# step's dual solve (the prefill of 256 prompt tokens, no sampled token
+# yet) is held to fixed bounds: there the mesh computes one device's
+# router scores up to the summation order of a rank's rows (q gap 3e-7,
+# loads L1 0 at full width), while each data rank's own duals (sync=
+# 'local') move q by ~1e-2 and the loads by tens (at the reduced size).
+# A one-ulp nudge of every weight already moves that q by 4e-3 at full
+# width, so it cannot scale these two bounds
+SERVE_STEP0_Q_TOL = 1e-4
+# 18(b)'s serving capacity factor: the rank's cut of the grid (128 tokens,
+# k = 4 of 16 experts) cannot overflow an expert's capacity at 4, nor can
+# the whole grid on one device, so the comparison isolates the sharding
+# (the reference's mesh serving test uses 4 for the same reason)
+SERVE_MESH_CAPACITY_FACTOR = 4.0
+CKPT_MESH_STEPS, CKPT_MESH_AT = 3, 2  # 18(b): a save at step 2 (one), resumed there for step 2 of 3
+MICRO_TOL = {"loss": 1e-5, "param": 1e-4}  # micro 2 vs 1, the reference anchor's (test_train_sharded.py:494-496)
+
+
+def serve_mesh_cfg(configs, strategy, fp32=False, capacity_factor=None, sync=None):
+    """minimind-16e at full width with `strategy` (bip keeps the config's
+    sync='local' unless `sync` is given; on the mesh the duals are then
+    the rank's), bf16 compute or fp32 (`fp32`), the config's capacity
+    factor unless given."""
+    import torch
+
+    cfg = configs.get("minimind_moe_16e")
+    cf = cfg.routing.capacity_factor if capacity_factor is None else capacity_factor
+    routing = dataclasses.replace(cfg.routing, strategy=strategy, capacity_factor=cf,
+                                  sync=cfg.routing.sync if sync is None else sync)
+    cfg = dataclasses.replace(cfg, routing=routing)
+    return dataclasses.replace(cfg, compute_dtype=torch.float32) if fp32 else cfg
+
+
+def serve_run_key(strategy, fp32, sync):
+    return f"{strategy}/{'fp32' if fp32 else 'bf16'}" + (f"/sync={sync}" if sync else "")
+
+
+def serve_mesh_prompts(np, vocab):
+    """18(b)'s requests: two of 256 tokens, six of 8-24 (seeded)."""
+    rng = np.random.default_rng(SERVE_MESH_SEED)
+    lens = list(SERVE_MESH_LONG) + [int(n) for n in rng.integers(SERVE_MESH_SHORT[1], SERVE_MESH_SHORT[2] + 1,
+                                                                  SERVE_MESH_SHORT[0])]
+    return [rng.integers(0, vocab, (n,)) for n in lens]
+
+
+def serve_mesh_run(torch, eng, prompts, gen, moe_gemm):
+    """`prompts` through `eng`, `gen` greedy tokens each, submitted
+    together. Returns each request's tokens, the per-expert load, steps,
+    each step's host seconds, the K1/K2 launches of the run and each
+    request's first-token logits (host, fp32)."""
+    first, last_rows = {}, {}
+    sample = eng._sample
+
+    def keep(last, mets):
+        last_rows["last"] = last
+        return sample(last, mets)
+
+    eng._sample = keep
+    reqs = [eng.submit(p, gen, ignore_eos=True) for p in prompts]
+    if any(r is None for r in reqs):
+        raise AssertionError("the engine refused a request")
+    moe_gemm.reset_launch_counts()  # this run's launches only
+    step_s, qs, loads = [], [], []
+    bip = eng.model.cfg.routing.strategy == "bip"
+    while eng.scheduler.has_work:
+        t = time.perf_counter()
+        eng.step()
+        step_s.append(time.perf_counter() - t)
+        if bip:
+            qs.append([st["q"].float().cpu().tolist() for st in eng.router_states if st is not None])
+            loads.append(eng.expert_load.astype(int).tolist())  # summed over the steps so far
+        for i, slot in eng.scheduler.active():
+            if len(slot.request.output) == 1 and slot.request.req_id not in first:
+                first[slot.request.req_id] = last_rows["last"][i].float().cpu()
+    del eng._sample
+    for r in reqs:
+        if r.finish_reason != "max_new_tokens" or len(r.output) != gen:
+            raise AssertionError(f"request {r.req_id} ended {r.finish_reason} with {len(r.output)} tokens")
+    return {"outputs": [list(map(int, r.output)) for r in reqs], "load": eng.expert_load.astype(int).tolist(),
+            "steps": eng.n_steps, "step_s": step_s, "q": qs if bip else None, "loads": loads if bip else None,
+            "n_moe": sum(f == "moe" for _, f in eng.model.cfg.layer_kinds()),
+            "launches": [moe_gemm.grouped_gated_ffn_in.launches, moe_gemm.grouped_matmul.launches],
+            "first": [first[r.req_id] for r in reqs]}
+
+
+def first_gaps(a, b):
+    """Relative L2 of each request's first-token logits."""
+    return [float((x - y).norm() / y.norm()) for x, y in zip(a, b)]
+
+
+def mesh_serve_world1(torch, np, configs, mods, tmp, dev="cuda"):
+    """18(a): world size 1 over NCCL, mesh 1x1: phase 4's 32 requests (16
+    slots x chunk 32) through ContinuousBatchingEngine(mesh=) against the
+    one-device engine on the same weights, topk and bip (use_kernel), then
+    phase 16's packed prompt set (bip). Gates: topk tokens and loads equal;
+    bip tokens and load totals equal, L1 <= SERVE_MESH_L1; K1/K2 exactly
+    one launch per MoE layer per step on the mesh; the packed set the same
+    steps and tokens. Returns the mesh runs' K1/K2 launches."""
+    Model, ContinuousBatchingEngine, init_distributed, make_host_mesh, moe_gemm = mods
+    import torch.distributed as dist
+
+    init_distributed(dev, backend="nccl" if dev == "cuda" else "gloo", init_method=f"file://{tmp}/store18a",
+                     rank=0, world_size=1)
+    mesh = make_host_mesh(1, 1)
+    rng = np.random.default_rng(0)
+    vocab = configs.get("minimind_moe_16e").vocab_size
+    phase4 = [rng.integers(0, vocab, (int(rng.integers(16, 97)),)) for _ in range(32)]
+    rng = np.random.default_rng(PACKED_SEED)  # phase 16's first draws: its minimind prompts
+    lens = list(PACKED_LONG) + [int(n) for n in rng.integers(PACKED_SHORT[1], PACKED_SHORT[2] + 1, PACKED_SHORT[0])]
+    packed_prompts = [rng.integers(0, vocab, (n,)) for n in lens]
+    launches, failed = [0, 0], []
+    for label, strategy, prompts, slots, chunk, max_seq in (
+            ("phase 4's 32 requests, topk", "topk", phase4, 16, 32, 96 + SERVE_MESH_GEN + 1),
+            ("phase 4's 32 requests, bip", "bip", phase4, 16, 32, 96 + SERVE_MESH_GEN + 1),
+            ("phase 16's packed set, bip", "bip", packed_prompts, PACKED_SLOTS, PACKED_CHUNK, PACKED_MAX_SEQ)):
+        cfg = serve_mesh_cfg(configs, strategy)
+        model = Model(cfg, device=dev)
+        params = model.init(seed=0)
+        runs = {}
+        for where, m in (("one device", None), ("mesh 1x1", mesh)):
+            eng = ContinuousBatchingEngine(model, params, n_slots=slots, chunk_size=chunk, max_seq_len=max_seq,
+                                           use_kernel=True, mesh=m)
+            runs[where] = serve_mesh_run(torch, eng, prompts, SERVE_MESH_GEN, moe_gemm)
+            del eng
+        one, on_mesh = runs["one device"], runs["mesh 1x1"]
+        same = sum(a == b for x, y in zip(one["outputs"], on_mesh["outputs"]) for a, b in zip(x, y))
+        n_tok = sum(len(x) for x in one["outputs"])
+        l1 = int(np.abs(np.subtract(one["load"], on_mesh["load"])).sum())
+        st = sorted(on_mesh["step_s"][1:])
+        per_step = [n / on_mesh["steps"] for n in on_mesh["launches"]]
+        print(f"[serve-mesh] (a) {label}, minimind-16e full width bf16 use_kernel, {slots} slots x chunk {chunk}, "
+              f"{SERVE_MESH_GEN} greedy tokens: steps {on_mesh['steps']} on the 1x1 mesh over "
+              f"{dist.get_backend()} / {one['steps']} on one device, equal tokens {same} of {n_tok}, loads "
+              f"L1 {l1} (totals {sum(on_mesh['load'])} / {sum(one['load'])}), first-token logits relative L2 "
+              f"largest {max(first_gaps(on_mesh['first'], one['first'])):.3e}, K1/K2 launches per step "
+              f"{per_step[0]:.2f} / {per_step[1]:.2f}, mesh step p50 {1e3 * st[len(st) // 2]:.2f} ms")
+        if same != n_tok or on_mesh["steps"] != one["steps"]:
+            failed.append(f"{label}: tokens or steps differ from one device")
+        if sum(on_mesh["load"]) != sum(one["load"]) or (l1 > SERVE_MESH_L1 if strategy == "bip" else l1 != 0):
+            failed.append(f"{label}: loads {on_mesh['load']} against one device's {one['load']}")
+        if on_mesh["launches"] != [on_mesh["n_moe"] * on_mesh["steps"]] * 2:
+            failed.append(f"{label}: K1/K2 launches {on_mesh['launches']} in {on_mesh['steps']} steps")
+        launches = [a + b for a, b in zip(launches, on_mesh["launches"])]
+        del model, params, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    if failed:
+        raise AssertionError("(a) " + "; ".join(failed))
+    return launches
+
+
+def phase18_rank(torch, np, dist, rank, mesh, dev, workdir):
+    """18(b) on one of the four ranks of phase 17(b)'s spawn: serving
+    (SERVE_MESH_RUNS), a checkpointed and resumed run, and microbatches.
+    Returns the rank's numbers (json-serializable; rank 0 adds the
+    one-device first step and the file check)."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.checkpoint.store import _flatten, _gather_to_rank0
+    from repro_torch.convert import train_state_to_tree
+    from repro_torch.data import SyntheticBatchStream, make_batches
+    from repro_torch.distributed import make_mesh_ctx, shard_tree, unshard_tree
+    from repro_torch.kernels import bip_admm, moe_gemm
+    from repro_torch.models import Model, build_model
+    from repro_torch.optim import constant, from_model_config
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.training import TrainState, compile_train_step, init_train_state, make_train_step, train_loop
+    from repro_torch.training.loop import _state_specs, micro_layout, shard_batch
+
+    out = {"serve": {}, "part_s": {}}
+    vocab = configs.get("minimind_moe_16e").vocab_size
+    prompts = serve_mesh_prompts(np, vocab)
+    t_part = time.perf_counter()
+    for strategy, fp32, sync in SERVE_MESH_RUNS:
+        cfg = serve_mesh_cfg(configs, strategy, fp32, SERVE_MESH_CAPACITY_FACTOR, sync)
+        model = Model(cfg, device=dev)
+        eng = ContinuousBatchingEngine(model, model.init(seed=0), n_slots=SERVE_MESH_SLOTS,
+                                       chunk_size=SERVE_MESH_CHUNK, max_seq_len=max(SERVE_MESH_LONG) + 64,
+                                       use_kernel=True, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_collectives(dist) as waits:
+            run = serve_mesh_run(torch, eng, prompts, SERVE_MESH_GEN, moe_gemm)
+        run["collective_ms"] = sum(v[1] for v in waits.values())
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        run["first"] = [t.tolist() for t in run["first"]] if (fp32 and rank == 0) else None
+        out["serve"][serve_run_key(strategy, fp32, sync)] = run
+        del eng, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["part_s"]["serve"] = time.perf_counter() - t_part
+
+    # checkpoints: 16e through ep, CKPT_MESH_AT steps with an async save at
+    # the last; the file against the state gathered from the ranks; then a
+    # fresh state resumed from it for step CKPT_MESH_AT against a straight
+    # CKPT_MESH_STEPS-step run. Warmup 1: the first CKPT_MESH_AT learning
+    # rates (0, then the cosine's first value, the peak) do not depend on
+    # total_steps, so the shorter saved run steps as the straight one does
+    t_part = time.perf_counter()
+    cfg = mesh_cfg(configs, "minimind_moe_16e", "ep")
+    model = build_model(cfg, make_mesh_ctx(mesh), device=dev)
+    ck = Path(workdir) / "ck18"
+    stream = lambda: SyntheticBatchStream(cfg, TRAIN_BATCH, TRAIN_SEQ, CKPT_MESH_STEPS, seed=0,  # noqa: E731
+                                          device=dev)
+    kw = dict(lr=1e-3, warmup_steps=1, total_steps=CKPT_MESH_STEPS, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(moe_gemm, bip_admm)
+    st_a, log_a = train_loop(model, stream(), ckpt_dir=str(ck), ckpt_every=CKPT_MESH_AT,
+                             **dict(kw, total_steps=CKPT_MESH_AT))
+    ckpt = {"launches": read_launches(moe_gemm, bip_admm), "per_step": mesh_per_step(cfg),
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30, "saves": log_a.checkpoints,
+            "losses_a": log_a.losses}
+    whole = _gather_to_rank0(st_a, _state_specs(model, st_a), mesh)
+    del st_a
+    if rank == 0:
+        want = _flatten(train_state_to_tree(whole, cfg))
+        del whole
+        got = _flatten(load_pytree(str(ck / f"step_{CKPT_MESH_AT}.npz")))  # verified by the resume
+
+        def same(w, g):
+            if w is None or g is None:
+                return w is None and g is None
+            return w.dtype == g.dtype and bool(torch.equal(w.cpu(), g))
+
+        ckpt["file_equal"] = want.keys() == got.keys() and all(same(want[k], got[k]) for k in want)
+        del want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    st_c, log_c = train_loop(model, stream(), **kw)
+    t = time.perf_counter()
+    st_b, log_b = train_loop(model, stream(), ckpt_dir=str(ck), resume=True, **kw)
+    ckpt["resume_s"] = time.perf_counter() - t
+    ckpt["losses_c"], ckpt["losses_b"] = log_c.losses, log_b.losses
+    ckpt["q_equal"] = all(bool(torch.equal(a, b)) for a, b in zip(layer_q(st_c), layer_q(st_b)))
+    ckpt["params_equal"] = all(bool(torch.equal(a, b)) for a, b in zip(tree_leaves(st_c.params),
+                                                                       tree_leaves(st_b.params)))
+    del st_b, st_c
+    out["ckpt"] = ckpt
+    out["part_s"]["ckpt"] = time.perf_counter() - t_part
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # microbatches: topk at capacity factor 8, micro 2 against micro 1, and
+    # bip micro 2 against one device's micro 2 at step 0 (fp32 compute)
+    t_part = time.perf_counter()
+    cfg = mesh_cfg(configs, "minimind_moe_16e", "ep", fp32=True)
+    tcfg = dataclasses.replace(cfg, routing=dataclasses.replace(cfg.routing, strategy="topk", capacity_factor=8.0))
+    micro = {}
+    for name, c in (("topk", tcfg), ("bip", cfg)):
+        batch = next(iter(make_batches(c, TRAIN_BATCH, TRAIN_SEQ, 1, seed=0, device=dev)))
+        first = None
+        if name == "bip" and rank == 0:
+            first = one_device_first_step(torch, (Model, init_train_state, make_train_step, from_model_config,
+                                                  constant, tree_leaves), c, batch, dev, micro=2)
+        model = build_model(c, make_mesh_ctx(mesh), device=dev)
+        opt = from_model_config(c)
+        res = {}
+        for k in ((1, 2) if name == "topk" else (2,)):
+            params = shard_tree(model.init(0), model.mesh_ctx.param_specs, mesh)
+            state = TrainState(params, adamw_init(params, opt), model.init_router_states())
+            b_specs = micro_layout(c, mesh, batch, k)
+            step = compile_train_step(model, opt, constant(1e-3), state, batch, mesh=mesh, microbatches=k,
+                                      b_specs=b_specs)
+            state, mets = step(state, shard_batch(batch, b_specs, mesh, k))
+            res[k] = (float(mets["loss"]), float(mets["grad_norm"]), state)
+        if name == "topk":
+            micro["topk"] = {"loss": [res[1][0], res[2][0]], "param_gap": max(
+                float((a.detach() - b.detach()).abs().max()) for a, b in zip(tree_leaves(res[1][2].params),
+                                                           tree_leaves(res[2][2].params)))}
+        else:
+            state = res[2][2]
+            sq_p, sq_mu = mesh_sq_dists(state, model.mesh_ctx.param_specs, mesh, unshard_tree,
+                                        None if first is None else first[0])
+            micro["bip"] = {"loss": res[2][0]}
+            if first is not None:
+                micro["bip"].update(step0=step_gaps(sq_p, sq_mu, res[2][1], first[0]), witnesses=first[1])
+        del res, model, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["micro"] = micro
+    out["part_s"]["micro"] = time.perf_counter() - t_part
+    return out
+
+
+def mesh_serve_references(torch, np, configs, mods, dev="cuda"):
+    """One device's serving runs that 18(b) is held against (SERVE_MESH_RUNS,
+    the same params and requests, 8 slots x chunk 32)."""
+    Model, ContinuousBatchingEngine, moe_gemm = mods
+    refs = {}
+    prompts = serve_mesh_prompts(np, configs.get("minimind_moe_16e").vocab_size)
+    for strategy, fp32, sync in SERVE_MESH_RUNS:
+        model = Model(serve_mesh_cfg(configs, strategy, fp32, SERVE_MESH_CAPACITY_FACTOR, sync), device=dev)
+        runs = {}
+        for nudged in ((False, True) if strategy == "bip" and fp32 else (False,)):
+            params = model.init(seed=0)
+            eng = ContinuousBatchingEngine(model, nudge_params(torch, params, dev) if nudged else params,
+                                           n_slots=SERVE_MESH_SLOTS, chunk_size=SERVE_MESH_CHUNK,
+                                           max_seq_len=max(SERVE_MESH_LONG) + 64, use_kernel=True)
+            runs[nudged] = serve_mesh_run(torch, eng, prompts, SERVE_MESH_GEN, moe_gemm)
+            del eng, params
+        refs[serve_run_key(strategy, fp32, sync)] = dict(runs[False], nudged=runs.get(True))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def resumed_equal(x) -> bool:
+    """A rank's resumed run against the straight one: losses, q and params."""
+    return (x["losses_a"] == x["losses_c"][:CKPT_MESH_AT] and x["losses_b"] == x["losses_c"][CKPT_MESH_AT:]
+            and x["q_equal"] and x["params_equal"])
+
+
+def serve_drift(np, run, ref):
+    """How far a bip serving run parts from `ref`: over the run, tokens
+    that differ, the loads' L1 and the largest q gap over the steps and
+    MoE layers; at the first step (the first dual solve, before any
+    sampled token can differ), the q gap and the loads' L1."""
+    same = sum(a == b for x, y in zip(run["outputs"], ref["outputs"]) for a, b in zip(x, y))
+    return {"tokens": sum(len(x) for x in ref["outputs"]) - same,
+            "l1": int(np.abs(np.subtract(run["load"], ref["load"])).sum()),
+            "q": max(float(np.abs(np.subtract(a, b)).max()) for a, b in zip(run["q"], ref["q"])),
+            "q_step0": float(np.abs(np.subtract(run["q"][0], ref["q"][0])).max()),
+            "l1_step0": int(np.abs(np.subtract(run["loads"][0], ref["loads"][0])).sum())}
+
+
+def serve_mesh_ffn_shape(cfg, moe):
+    """(E, C, D, F) of 18(b)'s expert FFN on one rank (ep2ds, the config's
+    'auto'): m / n_model experts, the data ranks' capacity buffers of the
+    rank's cut of the (slots x chunk) grid gathered, f / n_data as stored."""
+    n_data, n_model = MESH_SHAPE
+    cap = moe.expert_capacity(SERVE_MESH_SLOTS * SERVE_MESH_CHUNK // n_data, cfg)
+    return (cfg.routing.n_experts // n_model, n_data * cap, cfg.d_model, cfg.moe_d_ff // n_data)
+
+
+def mesh_phase18b(torch, np, ranks, refs):
+    """18(b)'s gates on the ranks' numbers (see phase18_rank) against one
+    device's serving runs `refs`. Returns the K1/K2 launches of rank 0's
+    serving runs and the K1/K2/K3 launches of its checkpointed run."""
+    world = len(ranks)
+    r0 = ranks[0]["p18"]
+    failed = []
+    serve_launches = [0, 0]
+    for key, ref in refs.items():
+        runs = [r["p18"]["serve"][key] for r in ranks]
+        run = runs[0]
+        fp32, bip = "/fp32" in key, key.startswith("bip")
+        same_ranks = all(x["outputs"] == run["outputs"] for x in runs)
+        same = sum(a == b for x, y in zip(run["outputs"], ref["outputs"]) for a, b in zip(x, y))
+        n_tok = sum(len(x) for x in ref["outputs"])
+        l1 = int(np.abs(np.subtract(run["load"], ref["load"])).sum())
+        st = sorted(run["step_s"][1:])
+        per_step = [[n / x["steps"] for n in x["launches"]] for x in runs]
+        line = (f"[serve-mesh] (b) {key}: {world} ranks sharing the card, mesh 2x2 over gloo, {SERVE_MESH_SLOTS} "
+                f"slots x chunk {SERVE_MESH_CHUNK}, two prompts of {SERVE_MESH_LONG[0]} and six of "
+                f"{SERVE_MESH_SHORT[1]}-{SERVE_MESH_SHORT[2]}, {SERVE_MESH_GEN} greedy tokens: every rank the same "
+                f"tokens {same_ranks}; against one device: equal tokens {same} of {n_tok} ({same / n_tok:.3f}), "
+                f"steps {run['steps']} / {ref['steps']}, loads L1 {l1}; step p50 {1e3 * st[len(st) // 2]:.1f} ms "
+                f"(rank 0), host time inside the collective calls {run['collective_ms']:.1f} ms over the run, "
+                f"K1/K2 launches per step per rank {per_step}, peak memory per rank "
+                f"{[round(x['peak_gb'], 2) for x in runs]} GB")
+        if fp32 and bip:  # held to one device's own drift under a one-ulp nudge (SERVE_MESH_L1's comment)
+            gaps = first_gaps([torch.tensor(v) for v in run["first"]], ref["first"])
+            mesh_d, nudge_d = serve_drift(np, run, ref), serve_drift(np, ref["nudged"], ref)
+            bound = {"tokens": MESH_NUDGE_FACTOR * nudge_d["tokens"],
+                     "l1": MESH_NUDGE_FACTOR * nudge_d["l1"] + SERVE_MESH_L1,
+                     "q": MESH_NUDGE_FACTOR * nudge_d["q"] + MESH_NUDGE_FLOOR["q"],
+                     "q_step0": SERVE_STEP0_Q_TOL, "l1_step0": SERVE_MESH_L1}
+            line += (f"; load totals {sum(run['load'])} / {sum(ref['load'])}; drift from one device (over the "
+                     f"run: tokens that differ, loads L1, largest q gap over steps and layers; at the first step: "
+                     f"q gap, loads L1): mesh {mesh_d}, one device "
+                     f"from params nudged by one ulp {nudge_d}, bounds {bound}; first-token logits relative L2 "
+                     f"largest {max(gaps):.3e}")
+            over = {k: v for k, v in mesh_d.items() if v > bound[k]}
+            if over or sum(run["load"]) != sum(ref["load"]) or run["steps"] != ref["steps"]:
+                failed.append(f"{key}: the bip fp32 control parts from one device beyond its own drift: {over}, "
+                              f"totals {sum(run['load'])} / {sum(ref['load'])}")
+        elif fp32:
+            gaps = first_gaps([torch.tensor(v) for v in run["first"]], ref["first"])
+            line += f"; first-token logits relative L2 largest {max(gaps):.3e} (tolerance {PACKED_FP32_TOL})"
+            if same != n_tok or l1 != 0 or max(gaps) > PACKED_FP32_TOL:
+                failed.append(f"{key}: the fp32 control parts from one device (tokens {same}/{n_tok}, L1 {l1}, "
+                              f"logits {max(gaps):.3e})")
+        elif bip:  # no gate: how far the first dual solve parts with each data rank's own duals
+            line += f"; drift from one device {serve_drift(np, run, ref)}"
+        print(line)
+        if not same_ranks:
+            failed.append(f"{key}: the ranks sampled different tokens")
+        for r, x in enumerate(runs):
+            if x["launches"] != [x["n_moe"] * x["steps"]] * 2:
+                failed.append(f"{key} rank {r}: K1/K2 launches {x['launches']} in {x['steps']} steps")
+        serve_launches = [a + b for a, b in zip(serve_launches, run["launches"])]
+    ck = [r["p18"]["ckpt"] for r in ranks]
+    c0 = ck[0]
+    saves = c0["saves"]
+    print(f"[ckpt-mesh] (b) minimind-16e through ep, bf16, {CKPT_MESH_AT} steps with an async save at step "
+          f"{CKPT_MESH_AT}, then a fresh state resumed from it for step {CKPT_MESH_AT} against a straight "
+          f"{CKPT_MESH_STEPS}-step run: losses {[round(v, 6) for v in c0['losses_a']]} + resumed "
+          f"{[round(v, 6) for v in c0['losses_b']]}, straight {[round(v, 6) for v in c0['losses_c']]}; per rank "
+          f"losses, q and params bit-equal {[resumed_equal(x) for x in ck]}; "
+          f"the step-{CKPT_MESH_AT} file read at world 1 equals the gathered state bitwise: {c0.get('file_equal')}")
+    for s in saves:
+        print(f"  save at step {s['step']} (rank 0): gather {s.get('gather_ms', 0):.1f} ms, the training "
+              f"thread's stall {s.get('call_ms', 0):.1f} ms, the writer {s.get('writer_s', float('nan')):.2f} s "
+              f"for {s.get('bytes', 0) / 1e9:.2f} GB (pinned allocation {s.get('pin_s', float('nan')):.2f} s, "
+              f"copies {s.get('copy_s', float('nan')):.2f} s)")
+    print(f"  gather per rank {[[round(s.get('gather_ms', 0), 1) for s in x['saves']] for x in ck]} ms; peak "
+          f"memory per rank during the saved run {[round(x['peak_gb'], 2) for x in ck]} GB; resume "
+          f"{c0['resume_s']:.2f} s (rank 0, {CKPT_MESH_STEPS - CKPT_MESH_AT} step included); launches "
+          f"{c0['launches']} over the saved run's {CKPT_MESH_AT} steps, expected per step {c0['per_step']}")
+    print(f"[phase 18(b)] seconds per part (rank 0, inside the spawn): "
+          f"{ {k: round(v, 1) for k, v in r0['part_s'].items()} }")
+    for r, x in enumerate(ck):
+        if not resumed_equal(x):
+            failed.append(f"rank {r}: the resumed run parts from the first")
+        for name, want in x["per_step"].items():
+            if x["launches"][name] != want * CKPT_MESH_AT:
+                failed.append(f"rank {r}: {name} launched {x['launches'][name]} times in the saved run")
+    if not c0.get("file_equal"):
+        failed.append(f"the step-{CKPT_MESH_AT} file differs from the gathered state")
+    topk = [r["p18"]["micro"]["topk"] for r in ranks]
+    dl = max(abs(x["loss"][0] - x["loss"][1]) for x in topk)
+    dp = max(x["param_gap"] for x in topk)
+    bip = r0["micro"]["bip"]
+    print(f"[micro-mesh] (b) one step, fp32 compute, 16e through ep: topk at capacity factor 8, micro 2 against "
+          f"micro 1: loss gap {dl:.2e}, largest param gap over the ranks' blocks {dp:.2e} (bounds "
+          f"{MICRO_TOL}); bip micro 2 against one device's micro 2 after step 0, relative gaps "
+          f"{ {k: f'{v:.2e}' for k, v in bip['step0'].items()} }, witnesses "
+          f"{ {w: {k: f'{v:.2e}' for k, v in g.items()} for w, g in bip['witnesses'].items()} }, bounds "
+          f"{MESH_STEP0_TOL}")
+    if dl > MICRO_TOL["loss"] or dp > MICRO_TOL["param"]:
+        failed.append(f"topk micro 2 parts from micro 1: loss {dl:.2e}, params {dp:.2e}")
+    over = {k: v for k, v in bip["step0"].items() if v > MESH_STEP0_TOL[k]}
+    if over:
+        failed.append(f"bip micro 2 parts from one device after step 0: {over}")
+    for w, g in bip["witnesses"].items():
+        if not any(v > MESH_STEP0_TOL[k] for k, v in g.items()):
+            failed.append(f"micro witness '{w}' passes the step-0 bounds ({g})")
+    if failed:
+        raise AssertionError("phase 18(b): " + "; ".join(failed))
+    return serve_launches, c0["launches"]
 
 
 def k3_pass_times(torch, bip_admm, gen, device_ms):
@@ -3038,8 +3546,12 @@ def main() -> int:
     # phase 17's per-rank expert-FFN shapes (2x2 mesh), timed in this one trace
     mesh_shapes = {(arch, impl): mesh_ffn_shape(mesh_cfg(configs, arch, impl), impl, moe)
                    for arch in MESH_ARCHS for impl in MESH_IMPLS}
-    mesh_err = {shape: check_kernels(torch, moe_gemm, shape, "bfloat16", gen) for shape in mesh_shapes.values()}
+    serve_mesh_shape = serve_mesh_ffn_shape(  # phase 18(b)'s
+        serve_mesh_cfg(configs, "topk", capacity_factor=SERVE_MESH_CAPACITY_FACTOR), moe)
+    mesh_err = {shape: check_kernels(torch, moe_gemm, shape, "bfloat16", gen)
+                for shape in (*mesh_shapes.values(), serve_mesh_shape)}
     fwd_timings = time_forward(torch, moe_gemm, {TRAIN: 2, MICRO: 2, LLAMA4: 2, ARCTIC16: 2, LLAMA4_TRAIN: 2,
+                                                 serve_mesh_shape: 8,
                                                  **{shape: 2 for shape in mesh_shapes.values()}}, gen)
     train_timings, micro_timings = fwd_timings[TRAIN], fwd_timings[MICRO]
     print_forward_times(train_timings, TRAIN)
@@ -3050,6 +3562,8 @@ def main() -> int:
     for (arch, impl), shape in mesh_shapes.items():
         print(f"  phase 17's {arch} {impl} expert FFN on one rank of the 2x2 mesh:")
         print_forward_times(fwd_timings[shape], shape)
+    print("  phase 18(b)'s serving expert FFN on one rank of the 2x2 mesh (ep2ds):")
+    print_forward_times(fwd_timings[serve_mesh_shape], serve_mesh_shape)
     torch.cuda.empty_cache()
     check_ffn_backward(torch, moe_gemm, kernel_ops, "bfloat16", gen)
     check_ffn_backward(torch, moe_gemm, kernel_ops, "bfloat16", gen, shape=MICRO)
@@ -3133,21 +3647,30 @@ def main() -> int:
             sharding, adamw.tree_paths), tmp17)
         print("[mesh] K3's collective form: the single-pass mode at the shapes phase 17 runs it")
         k3_pass = k3_pass_times(torch, bip_admm, gen, k3_pass_dev)
-        mesh_b, k3_layer, _ = mesh_shared_card(torch, np, configs, (
+        # -- 18(a). serving on the 1x1 mesh over NCCL
+        t18 = time.perf_counter()
+        serve18a = mesh_serve_world1(torch, np, configs, (
+            Model, ContinuousBatchingEngine, init_distributed, make_host_mesh, moe_gemm), tmp17)
+        serve18_refs = mesh_serve_references(torch, np, configs, (Model, ContinuousBatchingEngine, moe_gemm))
+        t18 = time.perf_counter() - t18
+        # -- 17(b) and 18(b): one spawn of four ranks sharing the card
+        mesh_b, k3_layer, _, mesh_ranks = mesh_shared_card(torch, np, configs, (
             Model, init_train_state, make_train_step, from_model_config, constant, make_batches), tmp17)
+        serve18b, ckpt18 = mesh_phase18b(torch, np, mesh_ranks, serve18_refs)
     finally:
         shutil.rmtree(tmp17, ignore_errors=True)
-    print(f"[mesh] phase wall {time.perf_counter() - t17:.1f} s")
+    print(f"[mesh] phases 17 and 18 wall {time.perf_counter() - t17:.1f} s (18(a) and 18(b)'s one-device "
+          f"serving references {t18:.1f} s; 18(b)'s rank work is inside the spawn's wall)")
 
     record = []
     for name, line, use, times, shape, n_launches, max_err in (
-        (k1, 41, "forward, serving shape; launches: serving (phases 4, 13, 16)", timings[k1], serve_shape,
-         launches[k1] + obs["serve"]["K1"] + packed["K1"], err[k1]),
+        (k1, 41, "forward, serving shape; launches: serving (phases 4, 13, 16, 18(a) on the 1x1 mesh)",
+         timings[k1], serve_shape, launches[k1] + obs["serve"]["K1"] + packed["K1"] + serve18a[0], err[k1]),
         (k1, 41, "forward, training shape; launches: training (phase 8), phase 12's 16e synthetic "
          "cells, phase 13 and phase 17(a) (mesh 1x1 over NCCL)", train_timings[k1], TRAIN,
          train_launches[k1] + matrix_launches["16e"]["K1"] + obs["train"]["K1"] + mesh_a[k1], train_err[k1]),
-        (k2, 94, "forward, serving shape; launches: serving (phases 4, 13, 16)", timings[k2], serve_shape,
-         launches[k2] + obs["serve"]["K2"] + packed["K2"], err[k2]),
+        (k2, 94, "forward, serving shape; launches: serving (phases 4, 13, 16, 18(a) on the 1x1 mesh)",
+         timings[k2], serve_shape, launches[k2] + obs["serve"]["K2"] + packed["K2"] + serve18a[1], err[k2]),
         (k2, 94, "forward, training shape; launches: training (phase 8), phase 12's 16e synthetic "
          "cells, phase 13 and phase 17(a) (mesh 1x1 over NCCL), all nine uses", train_timings[k2], TRAIN,
          train_launches[k2] + matrix_launches["16e"]["K2"] + obs["train"]["K2"] + mesh_a[k2], train_err[k2]),
@@ -3179,8 +3702,15 @@ def main() -> int:
         (name, line, f"forward, one rank's expert FFN of phase 17(b), {arch} through {impl} on the 2x2 mesh "
          f"({MESH_FFN_LAYOUT[impl]}); launches: rank 0 of the four ranks, {MESH_STEPS} steps"
          + (", all nine uses" if name == k2 else ""),
-         fwd_timings[shape][name], shape, mesh_b[f"{arch}/{impl}"][name], mesh_err[shape][name])
+         fwd_timings[shape][name], shape, mesh_b[f"{arch}/{impl}"][name]
+         + (ckpt18[name] if (arch, impl) == ("minimind_moe_16e", "ep") else 0), mesh_err[shape][name])
         for (arch, impl), shape in mesh_shapes.items() for name, line in ((k1, 41), (k2, 94))
+    ) + tuple(
+        (name, line, "forward, one rank's expert FFN of phase 18(b)'s serving on the 2x2 mesh (ep2ds: E = m / 2, "
+         "C the two data ranks' capacity buffers of the 8 x 32 grid gathered, F = f / 2 as stored); launches: "
+         "rank 0, the three serving runs", fwd_timings[serve_mesh_shape][name], serve_mesh_shape,
+         serve18b[i], mesh_err[serve_mesh_shape][name])
+        for i, (name, line) in enumerate(((k1, 41), (k2, 94)))
     ):
         k_ms, p_ms, lib_ms, _ = times
         b_ms, b_by = bound(name, shape, "bfloat16")
@@ -3244,8 +3774,9 @@ def main() -> int:
         ((TRAIN_BATCH * TRAIN_SEQ, 16, 4), mesh_a["bip_admm_iteration"], mesh_a_worst["q"],
          "phase 17(a): minimind-16e on the 1x1 mesh over NCCL, the whole batch on its one rank"),
         ((TRAIN_BATCH * TRAIN_SEQ // MESH_SHAPE[0], 16, 4),
-         sum(mesh_b[f"minimind_moe_16e/{impl}"]["bip_admm_iteration"] for impl in MESH_IMPLS),
-         k3_layer[16]["max_abs_err"], "phase 17(b): minimind-16e, rank 0 of the 2x2 mesh, ep and ep2ds"),
+         sum(mesh_b[f"minimind_moe_16e/{impl}"]["bip_admm_iteration"] for impl in MESH_IMPLS)
+         + ckpt18["bip_admm_iteration"], k3_layer[16]["max_abs_err"],
+         "phase 17(b): minimind-16e, rank 0 of the 2x2 mesh, ep and ep2ds, and phase 18(b)'s checkpointed run"),
         ((TRAIN_BATCH * TRAIN_SEQ // MESH_SHAPE[0], 64, 8),
          sum(mesh_b[f"minimind_moe_64e/{impl}"]["bip_admm_iteration"] for impl in MESH_IMPLS),
          k3_layer[64]["max_abs_err"], "phase 17(b): minimind-64e, rank 0 of the 2x2 mesh, ep and ep2ds"),

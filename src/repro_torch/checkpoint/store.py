@@ -28,6 +28,19 @@ training loop keeps running. Saves are serialized: the next save (and
 raised at the next `wait()`; there is no synchronous fallback. On CPU
 tensors the snapshot is a clone taken before the call returns.
 
+A sharded state (one rank of a mesh; `mesh=` and the state's spec tree)
+is saved in the same format, whole: the save is a collective that every
+rank calls at the same step, on the training thread (two threads issuing
+collectives on one process group would interleave differently on
+different ranks). Leaf by leaf, each leaf is gathered whole; rank 0 keeps
+it and the others drop their copy at once, so beside its blocks a rank
+holds one whole leaf at a time, and rank 0 the whole state. Rank 0 then
+saves as above (its writer thread, gc); the other ranks write nothing.
+`restore_sharded` barriers on rank 0's writer, lets rank 0 pick the step
+(the newest valid one), and every rank loads that file and keeps its
+blocks. So a file written on a mesh restores on one device, on another
+mesh shape, and in the reference.
+
 Integrity: every leaf's crc32 is re-checked by `load_pytree(verify=True)`,
 `restore(step=None)` walks checkpoints newest-first and returns the newest
 one that verifies, and `_gc` counts only manifest-valid checkpoints toward
@@ -296,6 +309,33 @@ def _host_copy(snap, side: torch.cuda.Stream, rec: Dict[str, Any]):
     return host
 
 
+def _gather_to_rank0(state, specs, mesh):
+    """The whole TrainState on rank 0 (None on the other ranks) from every
+    rank's blocks, one leaf at a time (a collective)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import unshard_tree
+
+    lead = dist.get_rank() == 0
+
+    def whole(tree, spec):
+        if isinstance(tree, dict):
+            return {k: whole(v, spec[k]) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [whole(v, sp) for v, sp in zip(tree, spec)]
+        if not isinstance(tree, torch.Tensor):
+            return tree  # the optimizer's host step counter
+        leaf = unshard_tree(tree, spec, mesh)
+        return leaf if lead else None
+
+    out = type(state)(params=whole(state.params, specs.params),
+                      opt_state={"step": state.opt_state["step"],
+                                 "mu": whole(state.opt_state["mu"], specs.opt_state["mu"]),
+                                 "nu": whole(state.opt_state["nu"], specs.opt_state["nu"])},
+                      router_states=whole(state.router_states, specs.router_states))
+    return out if lead else None
+
+
 class CheckpointManager:
     """Keeps the most recent `keep` *valid* checkpoints under
     `dir/step_N.npz` (validity = manifest size/crc; a corrupt later save
@@ -370,23 +410,38 @@ class CheckpointManager:
     # ------------------------------------------------- full training state
 
     def save_train_state(self, state, cfg, data_state: Optional[Dict] = None,
-                         block: bool = True) -> str:
+                         block: bool = True, *, mesh=None, specs=None) -> str:
         """Persist a port TrainState (params, Adam moments + step, router
         states) in the reference's layout under the optimizer's step, with
         `data_state` (a BatchStream cursor) in `step_N.data.json`.
         `block=False` returns after the on-device snapshot; the copy to the
-        host and the write run on a writer thread (see the module doc)."""
+        host and the write run on a writer thread (see the module doc).
+
+        On a mesh `state` holds this rank's blocks laid out by `specs` (a
+        TrainState of specs): a collective, gathered onto rank 0, which
+        alone writes; its record adds 'gather_ms' (host time of the
+        gather, on the training thread)."""
         from repro_torch.convert import train_state_to_tree  # lazy: import cycle
 
         t_call = time.perf_counter()
         self.wait()  # at most one write in flight
         step = int(state.opt_state["step"])
         path = self._path(step)
+        if mesh is not None:
+            t_g = time.perf_counter()
+            state = _gather_to_rank0(state, specs, mesh)
+            gather_ms = 1e3 * (time.perf_counter() - t_g)
+            if state is None:  # not rank 0: nothing to write
+                self.saves.append({"step": step, "gather_ms": gather_ms,
+                                   "call_ms": 1e3 * (time.perf_counter() - t_call)})
+                return path
         leaf = state.opt_state["mu"]
         while isinstance(leaf, (dict, list, tuple)):
             leaf = next(iter(leaf.values() if isinstance(leaf, dict) else leaf))
         cuda = leaf.is_cuda
         rec: Dict[str, Any] = {"step": step}
+        if mesh is not None:
+            rec["gather_ms"] = gather_ms
         if cuda:
             t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0.record()
@@ -469,6 +524,54 @@ class CheckpointManager:
         return step, train_state_from_numpy(
             tree["params"], tree["opt_state"], tree["router_states"], cfg, device
         )
+
+    def restore_sharded(self, cfg, mesh, step: Optional[int] = None, device="cpu"):
+        """One rank's share of `restore_train_state` on a mesh (a
+        collective): (step, TrainState of this rank's blocks on `device`,
+        laid out by distributed.train_state_specs), or None when the
+        directory holds no checkpoint. Rank 0's writer is waited for and
+        every rank barriers before any lists or reads; with step=None rank
+        0 picks the newest valid step (verifying it) and broadcasts it, and
+        every rank reads that file and cuts its blocks on the host before
+        moving them to `device` (an explicit `step` is verified on every
+        rank)."""
+        import torch.distributed as dist
+
+        from repro_torch.convert import train_state_from_numpy  # lazy: import cycle
+        from repro_torch.distributed import shard_tree, train_state_specs
+
+        self.wait()
+        dist.barrier()
+        tree = None
+        if step is None:
+            pick = [None]
+            if dist.get_rank() == 0:
+                try:
+                    pick[0], tree = self.restore()
+                except FileNotFoundError:
+                    pick[0] = -1
+                except CheckpointCorruptError as e:
+                    pick[0] = repr(e)
+            dist.broadcast_object_list(pick, src=0)
+            step = pick[0]
+            if step == -1:
+                return None
+            if isinstance(step, str):
+                raise CheckpointCorruptError(f"rank 0 found no valid checkpoint: {step}")
+            if tree is None:  # rank 0 verified this file: the others read it as it is
+                tree = load_pytree(self._path(step))
+        if tree is None:
+            step, tree = self.restore(step)
+        whole = train_state_from_numpy(tree["params"], tree["opt_state"], tree["router_states"], cfg, "cpu")
+        del tree
+        local = shard_tree(whole, train_state_specs(whole, cfg, mesh), mesh)
+        del whole
+        to = lambda t: t.to(device)  # noqa: E731
+        local.params = tree_map(to, local.params)
+        local.opt_state = {"step": local.opt_state["step"], "mu": tree_map(to, local.opt_state["mu"]),
+                           "nu": tree_map(to, local.opt_state["nu"])}
+        local.router_states = tree_map(to, local.router_states)
+        return step, local
 
     def _gc(self):
         """Delete checkpoints older than the newest `keep` VALID ones

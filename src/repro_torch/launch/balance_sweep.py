@@ -34,10 +34,22 @@ then the sharded loader and the prefetcher); --repeats 2 runs the methods
 in order, then in reverse order, and reports each method's steady step
 p50 per pass, so a difference between methods can be told from drift.
 Results go to --out only; a path named BENCH_*.json is refused (those are
-the reference's records). --sync/--mesh (the cross-shard lens) raise
-NotImplementedError: the sweep on a mesh is the next slice of the port's
-mesh work (ROADMAP.md queue 1, item 7); the sharded training it would
-drive is ported (training.loop, `launch.train --mesh`).
+the reference's records).
+
+--sync local|global|both switches to the CROSS-SHARD lens (the
+reference's BENCH_balance_sweep_sync.json): BIP trains on a --mesh DxM
+mesh (default 4x2) under each requested dual-sync mode, beside the
+unsharded single-device cell (sync='global': the threshold solver, so the
+contrast is solver for solver), on the same init and token stream; every
+entry records its sync mode and mesh. The duals run on the threshold
+bisection (K3 off; psum'd counts on the mesh), the expert FFN on K1/K2.
+It runs one process per rank:
+
+    python -m torch.distributed.run --nproc-per-node 8 -m repro_torch.launch.balance_sweep \
+        --sync both --mesh 4x2 --device cpu --steps 80 --out sync.json
+
+Rank 0 runs the single-device cell (the other ranks wait for it at the
+mesh cells' first collective), prints, and writes --out.
 """
 from __future__ import annotations
 
@@ -60,10 +72,8 @@ BATCH, SEQ_LEN = 8, 64
 # full width: the training shape of chip_smoke.py (8192 routed tokens/layer)
 FULL_BATCH, FULL_SEQ = 16, 512
 
-_NO_MESH = ("the cross-shard sweep (--sync/--mesh) is the next slice of the port's mesh work: "
-            "balance_sweep on a mesh, after the engine's mesh= (ROADMAP.md, queue 1, item 7); "
-            "sharded training itself runs through `python -m torch.distributed.run ... "
-            "repro_torch.launch.train --mesh DxM`")
+# the cross-shard lens's mesh when --mesh is not given (the reference's)
+SYNC_MESH = (4, 2)
 
 
 def sweep_cfg(arch: str):
@@ -165,6 +175,7 @@ def run_method(
     test_batches: int = 0,
     device="cuda",
     seed: int = 0,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Train `method` on `cfg` for `steps` steps and return its record (the
     reference's keys: max_vio_per_step, ppl_per_step, step_time_s,
@@ -177,10 +188,14 @@ def run_method(
     convert.train_state_from_numpy) and the same stream (synthetic from
     `seed`, or `data` through the loader with seed 0) for every method.
     `sync`, `use_kernel`, `ffn_kernel` and `bip_iters` override the
-    config's routing where given."""
+    config's routing where given. `mesh` (a DeviceMesh; every rank calls
+    this with the same arguments) trains on it, the model laid out by
+    distributed.make_mesh_ctx, and the record names its sync mode and
+    shape."""
     from repro_torch import resolve_device
     from repro_torch.data import SyntheticBatchStream, make_batches
-    from repro_torch.models import Model
+    from repro_torch.distributed import make_mesh_ctx
+    from repro_torch.models import build_model
     from repro_torch.training import evaluate_ppl, train_loop
 
     over = {"strategy": method}
@@ -190,7 +205,7 @@ def run_method(
             over[name] = val
     cfg = dataclasses.replace(cfg, routing=dataclasses.replace(cfg.routing, **over))
     device = resolve_device(device)
-    model = Model(cfg, device=device)
+    model = build_model(cfg, make_mesh_ctx(mesh), device=device)
     if data:
         from repro_torch.data import Prefetcher, ShardedTextLoader, resolve_shards
 
@@ -204,15 +219,20 @@ def run_method(
     t0 = time.perf_counter()
     state, log = train_loop(model, batches, seed=seed, lr=lr,
                             warmup_steps=max(steps // 10, 1) if warmup_steps is None else warmup_steps,
-                            total_steps=steps, state=state, microbatches=microbatches)
+                            total_steps=steps, state=state, microbatches=microbatches, mesh=mesh)
     wall = time.perf_counter() - t0
     launches = _launch_counts()
     vio = log.max_vio_steps
+    if mesh is not None:
+        sync_label = cfg.routing.sync
+    elif cfg.routing.sync == "global":
+        sync_label = "n/a (single device, threshold solver: sync='global')"
+    else:
+        sync_label = "n/a (single device)"
     rec = {
         "strategy": method,
-        "sync": ("n/a (single device, threshold solver: sync='global')"
-                 if cfg.routing.sync == "global" else "n/a (single device)"),
-        "mesh": None,
+        "sync": sync_label,
+        "mesh": None if mesh is None else list(mesh.shape),
         "use_kernel": cfg.routing.use_kernel,
         "ffn_kernel": cfg.routing.use_kernel if cfg.routing.ffn_kernel is None else cfg.routing.ffn_kernel,
         "max_vio_per_step": [[float(v) for v in row] for row in vio],
@@ -269,24 +289,39 @@ def run(
     reduced: bool = False,
     repeats: int = 1,
     device="cuda",
+    sync: Optional[str] = None,
+    mesh=None,
 ) -> Dict[str, Any]:
     """The method sweep: every method per config on one stream. Returns
     {'meta', 'configs': {name: {..., 'methods': {method: record}}}, 'rows'};
     with repeats > 1, pass r runs the methods in order (r even) or reversed
     (r odd) and 'p50_per_pass' holds each method's steady step p50 per
-    pass (the records are the first pass's)."""
+    pass (the records are the first pass's).
+
+    `sync` ('local', 'global' or 'both') with `mesh` (a DeviceMesh; every
+    rank calls this) runs the cross-shard lens instead: 'bip[single-device]'
+    (sync='global', no mesh: on rank 0 only) and 'bip[sync=<mode>]' on the
+    mesh, the duals on the threshold solver, as the reference's."""
     from repro_torch import resolve_device
 
     steps = steps or (12 if smoke else 80)
     device = resolve_device(device)
     build, batch, seq_len = _geometry("sweep", full_width, reduced, device)
     full_width = build is full_cfg
+    sync_modes = None if sync is None else (["local", "global"] if sync == "both" else [sync])
+    lead = True
+    if sync_modes:
+        import torch.distributed as dist
+
+        methods, repeats, lead = ("bip",), 1, dist.get_rank() == 0
+    note = "identical init + token stream per method; MaxVio = max_load/mean_load - 1 per MoE layer per batch"
     out: Dict[str, Any] = {
         "meta": {"batch": batch, "seq_len": seq_len, "steps": steps, "data": data,
                  "pack_mode": pack_mode if data else None,
                  "full_width": full_width, "repeats": repeats, "device": str(device),
-                 "note": "identical init + token stream per method; MaxVio = max_load/mean_load - 1 "
-                         "per MoE layer per batch; single device"},
+                 "mesh": list(mesh.shape) if sync_modes else None,
+                 "note": note + ("; cross-shard sync sweep: BIP on a DxM mesh per sync mode vs the unsharded "
+                                 "single-device reference" if sync_modes else "; single device")},
         "configs": {},
         "rows": [],
     }
@@ -297,11 +332,26 @@ def run(
             "n_layers": cfg.n_layers, "d_model": cfg.d_model, "bip_iters": cfg.routing.bip_iters,
             "methods": {}, "p50_per_pass": {m: [] for m in methods},
         }
+        kw = dict(batch=batch, seq_len=seq_len, data=data, tokenizer_path=tokenizer_path,
+                  pack_mode=pack_mode, device=device)
+        if sync_modes:
+            # the duals on the threshold solver in every cell (K3 off, K1/K2 on)
+            cells = ([("bip[single-device]", None, "global")] if lead else []) + [
+                (f"bip[sync={sm}]", mesh, sm) for sm in sync_modes]
+            for label, msh, sm in cells:
+                rec = run_method(cfg, "bip", steps, sync=sm, use_kernel=False, ffn_kernel=True, mesh=msh, **kw)
+                entry["methods"][label] = rec
+                out["rows"].append(_row(f"balance_sweep_{cfg.name}_{label}_sync", rec))
+                if lead:
+                    print(f"  {cfg.name} {label:18s} AvgMaxVio={rec['AvgMaxVio']:.4f} "
+                          f"step0={rec['first_step_max_vio']:.4f} ppl={rec['final_ppl']:.2f} "
+                          f"p50={_ms(rec['step_time_p50'])}", flush=True)
+            del entry["p50_per_pass"]
+            out["configs"][cfg.name] = entry
+            continue
         for r in range(repeats):
             for method in (methods if r % 2 == 0 else tuple(reversed(methods))):
-                rec = run_method(cfg, method, steps, batch=batch, seq_len=seq_len, data=data,
-                                 tokenizer_path=tokenizer_path, pack_mode=pack_mode, use_kernel=True,
-                                 device=device)
+                rec = run_method(cfg, method, steps, use_kernel=True, **kw)
                 entry["p50_per_pass"][method].append(rec["step_time_p50"])
                 if r:
                     continue
@@ -475,11 +525,15 @@ def main(argv=None) -> int:
                     help="passes over the methods, alternating order (sweep mode)")
     ap.add_argument("--out", default=None, help="write the results JSON here (not BENCH_*.json)")
     ap.add_argument("--sync", default=None, choices=["local", "global", "both"],
-                    help="the cross-shard sweep: the next slice (raises)")
-    ap.add_argument("--mesh", default=None, metavar="DxM", help="the cross-shard sweep's mesh: the next slice (raises)")
+                    help="the cross-shard lens: bip on --mesh per sync mode beside the single-device "
+                         "cell (under torch.distributed.run)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help=f"the cross-shard lens's mesh (default {SYNC_MESH[0]}x{SYNC_MESH[1]})")
     args = ap.parse_args(argv)
-    if args.sync or args.mesh:
-        raise NotImplementedError(_NO_MESH)
+    if args.mesh and not args.sync:
+        ap.error("--mesh only applies to --sync runs (the method sweep is single-device by design)")
+    if args.matrix and args.sync:
+        ap.error("--matrix and --sync are separate lenses; the matrix is single-device")
     if args.reduced and args.full_width:
         ap.error("--reduced and --full-width are exclusive")
     if args.repeats < 1:
@@ -489,13 +543,25 @@ def main(argv=None) -> int:
         methods = resolve_methods(args.methods, MATRIX_METHODS if args.matrix else METHODS)
     except ValueError as e:
         ap.error(str(e))
+    device, mesh, lead = args.device, None, True
+    if args.sync:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import mesh_from_cli
+
+        mesh, device = mesh_from_cli(ap, args.mesh or "x".join(map(str, SYNC_MESH)), args.device)
+        lead = dist.get_rank() == 0
     common = dict(smoke=args.smoke, steps=args.steps, data=args.data, tokenizer_path=args.tokenizer,
                   pack_mode=args.pack_mode, methods=methods, full_width=args.full_width,
-                  reduced=args.reduced, device=args.device)
+                  reduced=args.reduced, device=device)
     if args.matrix:
         result = run_matrix(**common)
     else:
-        result = run(repeats=args.repeats, **common)
+        result = run(repeats=args.repeats, sync=args.sync, mesh=mesh, **common)
+    if mesh is not None:
+        dist.destroy_process_group()
+    if not lead:
+        return 0
     for r in result["rows"]:
         print(f"{r['name']},{r['us_per_call']},{r['derived']}")
     if args.out:

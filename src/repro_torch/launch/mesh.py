@@ -85,4 +85,22 @@ def parse_mesh(spec: str):
     return data, model
 
 
-__all__ = ["init_distributed", "make_host_mesh", "parse_mesh"]
+def mesh_from_cli(ap, spec: str, device):
+    """A launcher's `--mesh DxM`: (mesh, this rank's device) once the shape
+    parses and the process runs as one of D*M ranks of
+    `torch.distributed.run`; anything else is an argparse error of `ap`."""
+    try:
+        data, model = parse_mesh(spec)
+    except ValueError:
+        ap.error(f"--mesh {spec!r}: expected DxM, e.g. 2x2")
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        ap.error(f"--mesh {spec} runs one process per rank: launch it with "
+                 f"python -m torch.distributed.run --nproc-per-node {data * model} -m ...")
+    if int(os.environ["WORLD_SIZE"]) != data * model:
+        ap.error(f"--mesh {spec} needs {data * model} ranks, torch.distributed.run started "
+                 f"{os.environ['WORLD_SIZE']}")
+    dev = init_distributed(device)
+    return make_host_mesh(data, model), dev
+
+
+__all__ = ["init_distributed", "make_host_mesh", "mesh_from_cli", "parse_mesh"]

@@ -5,6 +5,17 @@ engine on the GPU. The grouped expert FFN runs in the CUDA kernels
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minimind-moe-16e \
         --requests 16 --n-slots 8 --chunk 32 [--ckpt /path/step_N.npz]
+
+On a mesh (--mesh DxM: the cache's slots over D data ranks, the KV heads
+and the experts over M model ranks), one process per rank:
+
+    python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch minimind-moe-16e --mesh 2x2 [--device cpu --reduced]
+
+Each rank binds cuda:{local rank % cards} (NCCL when every rank has a card
+of its own, gloo when ranks share one; --device cpu: gloo), builds the same
+params and requests, and serves them through the engine's mesh=; rank 0
+prints and writes the telemetry.
 """
 from __future__ import annotations
 
@@ -46,6 +57,10 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="'cpu' runs without a GPU")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve on a (data D x model M) mesh over the D*M ranks of "
+                         "torch.distributed.run: params/cache take the training layouts and "
+                         "MoE layers run the expert-parallel paths")
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="per-request latency budget; overdue requests are "
                          "dropped ('expired') or evicted ('deadline')")
@@ -71,7 +86,17 @@ def main(argv=None):
     from repro_torch.telemetry import open_sink, profile_window
 
     window = profile_window(args.profile)  # a bad spec fails before any work
-    device = resolve_device(args.device)
+    mesh = None
+    lead = True  # the rank that prints
+    if args.mesh:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import mesh_from_cli
+
+        mesh, device = mesh_from_cli(ap, args.mesh, args.device)
+        lead = dist.get_rank() == 0
+    else:
+        device = resolve_device(args.device)
     cfg = configs.reduced_for_smoke(args.arch) if args.reduced else configs.get(args.arch)
     model = Model(cfg, device=device)
     if args.ckpt:
@@ -81,10 +106,12 @@ def main(argv=None):
     else:
         params = model.init(0)
     step_delay = _step_delay(args.inject)
-    if step_delay:
+    if step_delay and lead:
         print(f"injecting: slow_step {step_delay * 1e3:g} ms per step")
+    if mesh is not None and lead:
+        print(f"serving on a {args.mesh} mesh ({mesh.size()} ranks over {dist.get_backend()})")
 
-    sink = open_sink(args.telemetry)
+    sink = open_sink(args.telemetry) if lead else None
     max_seq_len = args.max_seq_len or (args.prompt_len + args.gen + 1)
     eng = ContinuousBatchingEngine(
         model,
@@ -101,6 +128,7 @@ def main(argv=None):
         step_delay=step_delay,
         sink=sink,
         profile=window,
+        mesh=mesh,
     )
     rng = np.random.default_rng(0)
     reqs = []
@@ -114,6 +142,10 @@ def main(argv=None):
             eng.step()  # waiting queue full: drain a step, then retry
         reqs.append(r)
     eng.run()
+    if not lead:
+        eng.close()
+        dist.destroy_process_group()
+        return 0
 
     for r in reqs[:4]:
         print(f"req {r.req_id}: prompt[{len(r.prompt)}] -> {r.output} ({r.finish_reason})")
@@ -146,6 +178,8 @@ def main(argv=None):
     if sink is not None:
         sink.close()
         print(f"telemetry -> {args.telemetry}")
+    if mesh is not None:
+        dist.destroy_process_group()
     return 0
 
 

@@ -52,8 +52,14 @@ the seeded global batch to its rows and the state to its blocks
 (moe_impl; 'auto' = ep2ds, as the reference), and rank 0 prints the log
 and the summary. On a mesh,
 --sync global keeps K3 on: the dual runs in its collective form (counts
-psum'd over the data ranks). Checkpoints (--ckpt-dir) and --micro > 1 on a
-mesh are the next slice and raise. The reference's TPU-pod flags
+psum'd over the data ranks). --micro k splits the global batch into k
+microbatches as on one device (each rank its rows of each). --ckpt-dir /
+--ckpt-every / --resume write and read the same files as one device:
+rank 0 writes the whole state gathered from the ranks, and a resume cuts
+every rank's blocks from it, so a mesh run resumes on one device or on
+another mesh shape and the other way round. Without torch.distributed.run
+(or with another world size than D*M) --mesh is an argparse error. The
+reference's TPU-pod flags
 (--production, --multi-pod, --coordinator, --num-hosts, --host-id) are not
 ported: they set up TPU pods.
 """
@@ -68,9 +74,11 @@ import shutil
 import sys
 
 
-def _tokenizer(cfg, args, shards):
+def _tokenizer(cfg, args, shards, lead=True):
     """Load --tokenizer when the file exists, else train one on the corpus
-    to cfg.vocab_size and save it there; a copy lands in --ckpt-dir."""
+    to cfg.vocab_size and save it there; a copy lands in --ckpt-dir. On a
+    mesh every rank trains the same tokenizer and only rank 0 (`lead`)
+    writes and prints."""
     from repro_torch.data import ByteBPETokenizer, train_tokenizer_from_files
 
     tok_path = args.tokenizer or (
@@ -78,17 +86,19 @@ def _tokenizer(cfg, args, shards):
     )
     if tok_path and os.path.exists(tok_path):
         tokenizer = ByteBPETokenizer.load(tok_path)
-        print(f"tokenizer <- {tok_path} (vocab {tokenizer.vocab_size})")
+        if lead:
+            print(f"tokenizer <- {tok_path} (vocab {tokenizer.vocab_size})")
     else:
         tokenizer = train_tokenizer_from_files(shards, vocab_size=cfg.vocab_size)
-        print(f"tokenizer trained on {len(shards)} shard(s): "
-              f"{len(tokenizer.merges)} merges, vocab {tokenizer.vocab_size}")
-        if tok_path:
+        if lead:
+            print(f"tokenizer trained on {len(shards)} shard(s): "
+                  f"{len(tokenizer.merges)} merges, vocab {tokenizer.vocab_size}")
+        if tok_path and lead:
             tokenizer.save(tok_path)
             print(f"tokenizer -> {tok_path}")
     if tokenizer.vocab_size > cfg.vocab_size:
         raise ValueError(f"tokenizer vocab {tokenizer.vocab_size} exceeds model vocab {cfg.vocab_size}")
-    if args.ckpt_dir and tok_path != os.path.join(args.ckpt_dir, "tokenizer.json"):
+    if lead and args.ckpt_dir and tok_path != os.path.join(args.ckpt_dir, "tokenizer.json"):
         os.makedirs(args.ckpt_dir, exist_ok=True)
         dst = os.path.join(args.ckpt_dir, "tokenizer.json")
         if tok_path:
@@ -98,13 +108,14 @@ def _tokenizer(cfg, args, shards):
     return tokenizer
 
 
-def _build_data_stream(cfg, args, device, faults=None):
-    """(BatchStream, tokenizer) for --data: loader (rank 0 of 1) -> fault
-    wrappers -> Prefetcher to `device`."""
+def _build_data_stream(cfg, args, device, faults=None, lead=True):
+    """(BatchStream, tokenizer) for --data: loader (rank 0 of 1: on a mesh
+    every rank reads the global batch) -> fault wrappers -> Prefetcher to
+    `device`."""
     from repro_torch.data import Prefetcher, ShardedTextLoader, resolve_shards
 
     shards = resolve_shards(args.data)
-    tokenizer = _tokenizer(cfg, args, shards)
+    tokenizer = _tokenizer(cfg, args, shards, lead)
     stream = ShardedTextLoader(
         shards, tokenizer, batch_size=args.batch, seq_len=args.seq_len,
         pack_mode=args.pack_mode, rank=0, world_size=1,
@@ -215,8 +226,6 @@ def main(argv=None, *, config_fields=None):
     args = ap.parse_args(argv)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
-    if args.mesh and (args.ckpt_dir or args.micro > 1):
-        ap.error("--ckpt-dir and --micro > 1 on a mesh are the next slice of the port")
 
     from repro_torch import configs, resolve_device
     from repro_torch.core import get_balancer
@@ -238,14 +247,9 @@ def main(argv=None, *, config_fields=None):
     if args.mesh:
         import torch.distributed as dist
 
-        from repro_torch.launch.mesh import init_distributed, make_host_mesh, parse_mesh
+        from repro_torch.launch.mesh import mesh_from_cli
 
-        try:
-            shape = parse_mesh(args.mesh)
-        except ValueError:
-            ap.error(f"--mesh {args.mesh!r}: expected DxM, e.g. 2x2")
-        device = init_distributed(args.device)
-        mesh = make_host_mesh(*shape)
+        mesh, device = mesh_from_cli(ap, args.mesh, args.device)
         lead = dist.get_rank() == 0
     else:
         device = resolve_device(args.device)
@@ -289,7 +293,7 @@ def main(argv=None, *, config_fields=None):
         guard = GuardConfig(policy=args.guard or "skip", spike_factor=args.spike_factor,
                             spike_window=args.spike_window)
     if args.data:
-        batches, tokenizer = _build_data_stream(cfg, args, device, faults)
+        batches, tokenizer = _build_data_stream(cfg, args, device, faults, lead)
     else:
         batches = SyntheticBatchStream(cfg, args.batch, args.seq_len, args.steps, device=device)
         if faults is not None:

@@ -210,6 +210,7 @@ def attention_chunk(
     *,
     layer_kind: str = "global",
     lengths: Optional[Tensor] = None,  # (B,) tokens valid per row (0..C)
+    project: bool = True,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Cached attention advancing each row by `lengths[i]` tokens at once.
 
@@ -221,7 +222,9 @@ def attention_chunk(
     updated cache; ring (sliding-window) layers attend against the
     pre-update ring concatenated with the in-chunk keys. Padded output
     columns are garbage and must be masked by the caller. Returns
-    (out, {'k', 'v' (the same tensors), 'pos' advanced by lengths}).
+    (out, {'k', 'v' (the same tensors), 'pos' advanced by lengths});
+    `project=False` returns the heads' outputs (B, C, H, hd) before the
+    output projection instead of out.
     """
     b, c, _ = x.shape
     dev = x.device
@@ -288,7 +291,7 @@ def attention_chunk(
     mask = mask[:, None]  # (B, 1, C, cap[+C])
 
     y = _attend(q, k_att, v_att, mask, cfg.attn_logit_softcap, cd)
-    out = torch.einsum("bshk,hkd->bsd", y, params["wo"].to(cd))
+    out = torch.einsum("bshk,hkd->bsd", y, params["wo"].to(cd)) if project else y
     return out, {"k": k_cache, "v": v_cache, "pos": pos0 + lengths}
 
 
@@ -340,6 +343,7 @@ def _attention_chunk_packed(
     cache_rows: Optional[Tensor],  # (B,) cache row each ROW reads
     writes=None,  # packed_writes(...) for this cache, when the caller has it
     counts: Optional[Tensor] = None,  # packed_counts(...), likewise
+    project: bool = True,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Packed multi-request chunk (the reference's function of this name):
     rows and cache slots decouple, and every column carries (position,
@@ -358,7 +362,8 @@ def _attention_chunk_packed(
     its stream wrote this chunk. Ring layers gather the PRE-update ring and
     attend it beside the in-chunk keys, as the dense path; the engine
     spreads only on all-global stacks. The cache tensors are written in
-    place; 'pos' advances by `packed_counts`.
+    place; 'pos' advances by `packed_counts`. `project=False` returns the
+    heads' outputs (B, C, H, hd) before the output projection.
     """
     b, c, _ = x.shape
     dev = x.device
@@ -425,7 +430,7 @@ def _attention_chunk_packed(
     mask = (torch.cat([cache_ok, chunk_ok], dim=-1) & valid[..., None])[:, None]  # (B, 1, C, cap+C)
 
     y = _attend(q, k_att, v_att, mask, cfg.attn_logit_softcap, cd)
-    out = torch.einsum("bshk,hkd->bsd", y, params["wo"].to(cd))
+    out = torch.einsum("bshk,hkd->bsd", y, params["wo"].to(cd)) if project else y
     return out, {"k": k_cache, "v": v_cache, "pos": pos0 + counts}
 
 

@@ -42,8 +42,27 @@ every leaf but the expert weights is all-gathered at use
 block, summed over the data ranks). The dense layers then run on every
 rank of the model axis alike (no tensor parallelism yet) and the MoE
 layers through moe.moe_ffn's expert-parallel paths. The loss is the mean
-over the global batch. Serving (init_slot_cache, prefill_chunk) stays on
-one device.
+over the global batch.
+
+Serving on a mesh (init_slot_cache, reset_slot, prefill_chunk; the
+engine's mesh=) holds the cache as distributed.cache_specs lays it out:
+each data rank its block of the slots, each model rank its block of the KV
+heads. The expert weights are cut as in training and every other weight is
+whole on every rank (`serving_param_specs`: nothing is gathered at a
+step). Every rank takes the step's tokens, positions and cache rows whole
+(the reference's replicated serving operands): norms, projections and the
+dense MLP run on all rows, and the MoE layers through moe.moe_ffn's
+expert-parallel paths with the serving token mask (the replicated-batch
+case, MeshCtx.tokens_sharded False). Attention is computed by the rank
+that holds the slot a row reads (`cache_rows`, or the row's own slot) and
+only for the query heads of its KV heads; it writes every column whose
+write slot it holds into its block. The (row, head) outputs it does not
+compute are zeros, so one psum over every mesh axis gives each rank the
+whole output exactly (each entry has one nonzero addend), and the output
+projection follows on all rows. Attention-only stacks whose slots divide
+over the data ranks and KV heads over the model ranks are served;
+SSM/conv caches and a cache split along its length are not
+(init_slot_cache raises).
 """
 from __future__ import annotations
 
@@ -132,6 +151,20 @@ def abstract_params(cfg: ModelConfig) -> Params:
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
+def _is_expert_leaf(keys: Tuple[str, ...]) -> bool:
+    return "moe" in keys and keys[-1] in _EXPERT_LEAVES
+
+
+def _map_keyed(tree, specs, fn, keys: Tuple[str, ...] = ()):
+    """fn(leaf, spec, dict keys from the root) over a params tree and its
+    spec tree."""
+    if isinstance(tree, dict):
+        return {k: _map_keyed(v, specs[k], fn, keys + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_keyed(v, sp, fn, keys) for v, sp in zip(tree, specs)]
+    return fn(tree, specs, keys)
+
+
 class Model:
     def __init__(self, cfg: ModelConfig, device="cuda", mesh_ctx: Optional[MeshCtx] = None):
         cfg.validate()
@@ -154,18 +187,20 @@ class Model:
         varying = tuple(mc.data_axes) if mc.tokens_sharded else ()
 
         def use(leaf, spec, keys):
-            if "moe" in keys and keys[-1] in _EXPERT_LEAVES:
+            if _is_expert_leaf(keys):
                 return leaf  # moe.moe_ffn's paths take the stored blocks
             return collectives.gather_leaf(leaf, spec, mc.mesh, varying)
 
-        def walk(tree, specs, keys):
-            if isinstance(tree, dict):
-                return {k: walk(v, specs[k], keys + (k,)) for k, v in tree.items()}
-            if isinstance(tree, list):
-                return [walk(v, sp, keys) for v, sp in zip(tree, specs)]
-            return use(tree, specs, keys)
+        return _map_keyed(params, mc.param_specs, use)
 
-        return walk(params, mc.param_specs, ())
+    def serving_param_specs(self) -> Params:
+        """The params' layout for serving on the mesh: the expert leaves cut
+        as distributed.param_specs cuts them (moe.moe_ffn's paths take the
+        blocks), every other leaf whole on every rank. Serving weights do
+        not change, so the dense leaves are held whole once instead of
+        gathered at every step."""
+        return _map_keyed(self.mesh_ctx.param_specs, self.mesh_ctx.param_specs,
+                          lambda spec, _, keys: spec if _is_expert_leaf(keys) else ())
 
     # ------------------------------------------------------------- init
 
@@ -293,11 +328,19 @@ class Model:
     def init_slot_cache(self, params: Params, n_slots: int, max_seq_len: int) -> Params:
         """Slot-pool cache for the continuous-batching engine: one cache row
         per batch slot, recycled across requests via `reset_slot`. Token
-        families only: encdec needs per-request encoder K/V (ValueError)."""
+        families only: encdec needs per-request encoder K/V (ValueError).
+        On a mesh: this rank's block (distributed.cache_specs); what mesh
+        serving does not cover raises (`_check_mesh_serving`)."""
         if self.cfg.n_enc_layers:
             raise ValueError("slot cache: encdec is not supported (its cross K/V are per "
                              "request); serve it through serving.greedy_generate")
-        return self._build_cache(params, n_slots, max_seq_len, None)
+        mesh = self.mesh_ctx.mesh
+        if mesh is not None:
+            self._check_mesh_serving(n_slots)
+        cache = self._build_cache(params, n_slots, max_seq_len, None)
+        if mesh is not None:
+            cache = sharding.shard_tree(cache, sharding.cache_specs(cache, self.cfg, mesh, n_slots), mesh)
+        return cache
 
     def _build_cache(self, params: Params, bsz: int, seq_len: int, enc_out) -> Params:
         cfg, dev = self.cfg, self.device
@@ -317,23 +360,114 @@ class Model:
             layers.append(c)
         return {"layers": layers}
 
-    @staticmethod
-    def reset_slot(cache: Params, slot: int) -> Params:
+    def reset_slot(self, cache: Params, slot: int) -> Params:
         """Zero one slot's row of every cache leaf (K/V, positions, SSM and
         conv state, the shared block's K/V), in place. The slot is axis 0 of
-        each per-layer leaf."""
+        each per-layer leaf; on a mesh only the rank that holds the slot
+        has a row to zero."""
+        if self.mesh_ctx.mesh is not None:
+            blk = self._cache_block(cache)
+            slot -= blk["lo"]
+            if not 0 <= slot < blk["n_rows"]:
+                return cache
         for layer in cache["layers"]:
             for leaf in layer.values():
                 leaf[slot] = 0
         return cache
 
+    # ------------------------------------------------ serving on a mesh
+
+    def _check_mesh_serving(self, n_slots: int) -> None:
+        """Refuse what serving on this model's mesh does not cover: stacks
+        with SSM/conv state (NotImplementedError), slots that do not split
+        over the data ranks (cache_specs would split the cache's length)
+        and KV heads that do not split over the model ranks (ValueError)."""
+        cfg, mc = self.cfg, self.mesh_ctx
+        kinds = sorted({k for k, _ in cfg.layer_kinds() if k not in ("global", "local")})
+        if kinds:
+            raise NotImplementedError(
+                f"serving on a mesh: {cfg.name} has {kinds} layers, whose SSM/conv slot state has no "
+                "mesh layout in the port yet (ROADMAP.md queue 1, item 7, 'SSM/conv caches on a mesh'); "
+                "serve it on one device")
+        shape = collectives.mesh_shape(mc.mesh)
+        n_data = math.prod(shape[a] for a in mc.data_axes)
+        if n_slots % n_data:
+            raise ValueError(
+                f"serving on a mesh: {n_slots} slots do not split over {n_data} data ranks (the cache "
+                "would split along its length, which the port does not serve: ROADMAP.md queue 1, "
+                "item 7, 'length-split caches'); use a multiple of the data size")
+        if cfg.n_kv_heads % shape[mc.model_axis]:
+            raise ValueError(
+                f"serving on a mesh: {cfg.n_kv_heads} KV heads do not split over {shape[mc.model_axis]} "
+                "model ranks (the cache would split head_dim; ROADMAP.md queue 1, item 7)")
+
+    def _cache_block(self, cache: Params) -> Dict[str, Any]:
+        """Where this rank's cache block sits: its first slot and slot count,
+        and its KV heads and their query heads as (first, count)."""
+        cfg, mc = self.cfg, self.mesh_ctx
+        k = cache["layers"][0]["k"]
+        n_rows, n_kv = k.shape[0], k.shape[2]
+        kv0 = collectives.axis_index(mc.model_axis, mc.mesh) * n_kv
+        group = cfg.n_heads // cfg.n_kv_heads
+        return {"lo": collectives.axis_index(mc.data_axes, mc.mesh) * n_rows, "n_rows": n_rows,
+                "kv": (kv0, n_kv), "q": (kv0 * group, n_kv * group)}
+
+    def _local_packed(self, cache, blk, positions, segments, write_slots, cache_rows):
+        """The packed operands of the rows this rank's attention touches:
+        the rows that read a slot of its block (`own`) and the rows with a
+        column writing into one, with slots renumbered into the block
+        (others -1: not written here)."""
+        lo, n = blk["lo"], blk["n_rows"]
+        if cache_rows is None:
+            cache_rows = torch.arange(segments.shape[0], device=segments.device)
+        own = (cache_rows >= lo) & (cache_rows < lo + n)
+        here = (write_slots >= lo) & (write_slots < lo + n)
+        rows = torch.nonzero(own | here.any(dim=1), as_tuple=True)[0]
+        ops = self._packed_operands(cache, positions[rows], segments[rows],
+                                    torch.where(here, write_slots - lo, -1)[rows],
+                                    torch.where(own, cache_rows - lo, 0)[rows])
+        ops.update(rows=rows, own=own[rows])
+        return ops
+
+    def _attention_on_mesh(self, p, xn, kv, layer_kind, lengths, blk):
+        """Chunk attention of the rows and heads this rank holds (see the
+        module doc), psum'd whole, then the output projection."""
+        cfg, mc = self.cfg, self.mesh_ctx
+        cd = cfg.compute_dtype
+        b, c, _ = xn.shape
+        (kv0, n_kv), (q0, n_q) = blk["kv"], blk["q"]
+        heads = dict(p, wq=p["wq"][:, q0:q0 + n_q], wk=p["wk"][:, kv0:kv0 + n_kv],
+                     wv=p["wv"][:, kv0:kv0 + n_kv])
+        loc = blk["packed"]
+        if loc is None:
+            lo, n = blk["lo"], blk["n_rows"]
+            rows = slice(lo, lo + n)
+            y, new_kv = common.attention_chunk(heads, xn[rows], kv, cfg, layer_kind=layer_kind,
+                                               lengths=None if lengths is None else lengths[rows],
+                                               project=False)
+        else:
+            rows = loc["rows"]
+            ops = {k: v for k, v in loc.items() if k not in ("rows", "own")}
+            y, new_kv = common._attention_chunk_packed(
+                heads, xn[rows], kv, cfg, layer_kind=layer_kind, project=False,
+                **dict(ops, writes=ops["writes"][layer_kind]))
+            y = torch.where(loc["own"][:, None, None, None], y, torch.zeros((), dtype=y.dtype, device=y.device))
+        whole = y.new_zeros((b, c, cfg.n_heads, y.shape[-1]))
+        whole[rows, :, q0:q0 + n_q] = y
+        with collectives.axis_env(mc.mesh):
+            whole = collectives.psum(whole, tuple(mc.data_axes) + (mc.model_axis,))
+        return torch.einsum("bshk,hkd->bsd", whole, p["wo"].to(cd)), new_kv
+
     def _apply_layer_chunk(self, p, x, cfg, mixer_kind, ffn_kind, cache, router_state, lengths,
-                           shared, packed=None):
+                           shared, packed=None, blk=None):
         """One layer over a (B, C) token chunk against its cache. `packed`
         (from `_packed_operands`) switches attention to the packed layout;
-        column validity then comes from segments >= 0. Returns (x,
-        new_cache, new_router_state, load) with load the per-expert dispatch
-        counts of this layer's real tokens, or None."""
+        column validity then comes from segments >= 0. `blk` (on a mesh,
+        from `_cache_block`, with this step's local packed operands) sends
+        attention through `_attention_on_mesh` and the MoE layer through
+        the expert-parallel paths. Returns (x, new_cache, new_router_state,
+        load) with load the per-expert dispatch counts of this layer's real
+        tokens, or None."""
         valid = None
         if packed is not None:
             valid = packed["segments"] >= 0
@@ -343,7 +477,9 @@ class Model:
         if mixer_kind in ("global", "local"):
             xn = common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps)
             kv = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}
-            if packed is None:
+            if blk is not None:
+                h, attn_cache = self._attention_on_mesh(p["attn"], xn, kv, mixer_kind, lengths, blk)
+            elif packed is None:
                 h, attn_cache = common.attention_chunk(
                     p["attn"], xn, kv, cfg, layer_kind=mixer_kind, lengths=lengths
                 )
@@ -378,9 +514,13 @@ class Model:
                 # zero padded rows so they router-score as neutral uniform
                 flat = (xin * valid[..., None].to(xin.dtype)).reshape(b * s, d)
                 token_mask = valid.reshape(b * s)
-            y, router_state, _aux, moe_mets = moe.moe_ffn_local(
-                p["moe"], flat, router_state, cfg, token_mask=token_mask
-            )
+            if blk is None:
+                y, router_state, _aux, moe_mets = moe.moe_ffn_local(
+                    p["moe"], flat, router_state, cfg, token_mask=token_mask)
+            else:  # every rank holds the whole chunk: the replicated-batch EP case
+                y, router_state, _aux, moe_mets = moe.moe_ffn(
+                    p["moe"], flat, router_state, cfg,
+                    dataclasses.replace(self.mesh_ctx, tokens_sharded=False), token_mask=token_mask)
             load = moe_mets["load"]
             x = x + (y.reshape(b, s, d) + stack._residual_mlps(p, xin, cfg))
 
@@ -435,18 +575,29 @@ class Model:
         every column carries (position, segment, write slot); `lengths` is
         ignored. Attention-only stacks only (ValueError otherwise): SSM and
         conv state advance strictly left to right per row and cannot host
-        interleaved streams."""
+        interleaved streams.
+
+        On a mesh (see the module doc) `params` are laid out by
+        `serving_param_specs` (the expert leaves this rank's blocks, the
+        rest whole), `cache` is this rank's block, every other operand is
+        whole, and the logits, metrics and router states come back whole on
+        every rank."""
         cfg = self.cfg
+        blk = None
         if self.mesh_ctx.mesh is not None:
-            raise NotImplementedError(
-                "serving on a mesh (the engine's mesh=) is the next slice of the port; "
-                "a mesh model trains only")
+            blk = self._cache_block(cache)
+            blk["packed"] = None
+            if segments is not None:
+                blk["packed"] = self._local_packed(cache, blk, positions, segments, write_slots, cache_rows)
         packed = None
         if segments is not None:
             bad = {k for k, _ in cfg.layer_kinds() if k.replace("+shared", "") not in ("global", "local")}
             if bad:
                 raise ValueError(f"packed prefill: attention-only stacks required, got {sorted(bad)}")
-            packed = self._packed_operands(cache, positions, segments, write_slots, cache_rows)
+            if blk is None:
+                packed = self._packed_operands(cache, positions, segments, write_slots, cache_rows)
+            else:  # the whole grid's columns, for the MoE layers' token mask
+                packed = {"segments": segments}
         x = common.embed(params["embed"], tokens, cfg)
         shared = params["stack"].get("shared")
         m_load = cfg.routing.n_experts if cfg.is_moe else 1
@@ -456,7 +607,8 @@ class Model:
         for (mixer, ffn), p, c, st in zip(
             cfg.layer_kinds(), params["stack"]["layers"], cache["layers"], router_states
         ):
-            x, nc, st, ld = self._apply_layer_chunk(p, x, cfg, mixer, ffn, c, st, lengths, shared, packed)
+            x, nc, st, ld = self._apply_layer_chunk(p, x, cfg, mixer, ffn, c, st, lengths, shared, packed,
+                                                    blk)
             new_layers.append(nc)
             new_states.append(st)
             load_total, vio_max = _merge_load(load_total, vio_max, ld, m_load)

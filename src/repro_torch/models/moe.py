@@ -188,6 +188,17 @@ def _rows(t: Optional[Tensor], data_axes):
     return None if t is None else C.shard_rows(t, data_axes)
 
 
+def _router_weight(params, data_axes, tokens_sharded: bool) -> Tensor:
+    """The router weight as a path that routes the rank's rows uses it.
+    Where those rows are the rank's cut of a batch replicated over data,
+    the work varies over data only inside this layer, so the weight is
+    pvary'd there (its gradient summed over the data ranks, shard_map's
+    transpose); a data-split batch's sum happens where the model gathers
+    the leaf (Model._params_at_use)."""
+    w = params["w_router"]
+    return C.pvary(w, data_axes) if data_axes and not tokens_sharded else w
+
+
 def _mets(load, mean_load, dropped):
     return {"load": load, "max_vio": load.max() / mean_load - 1.0, "dropped_frac_cap1": dropped}
 
@@ -224,7 +235,7 @@ def moe_ffn_ep(params, x, router_state, cfg, mesh, *, data_axes, model_axis, tok
             varying=bool(data_axes))
         offset = C.axis_index(model_axis) * m_loc
 
-        logits = torch.einsum("nd,dm->nm", x_loc.float(), params["w_router"])
+        logits = torch.einsum("nd,dm->nm", x_loc.float(), _router_weight(params, data_axes, tokens_sharded))
         out = route(logits, router_state, rcfg, token_mask=mask_loc)
         plan = make_dispatch_plan(out.expert_index, m, cap, mask_loc)
         buf = plan.pack(C.pvary(x_loc, model_axis), expert_offset=offset, n_local=m_loc)
@@ -355,7 +366,7 @@ def moe_ffn_ep2ds(params, x, router_state, cfg, mesh, *, data_axes, model_axis, 
             varying=True)
         offset = C.axis_index(model_axis) * m_loc
 
-        logits = torch.einsum("nd,dm->nm", x_loc.float(), params["w_router"])
+        logits = torch.einsum("nd,dm->nm", x_loc.float(), _router_weight(params, data_axes, tokens_sharded))
         out = route(logits, router_state, rcfg, token_mask=mask_loc)
         plan = make_dispatch_plan(out.expert_index, m, cap, mask_loc)
         buf = plan.pack(C.pvary(x_loc, model_axis), expert_offset=offset, n_local=m_loc)

@@ -13,9 +13,20 @@ its next chunks SPREAD across the free rows (all-global stacks only:
 write-then-attend makes this exact), and short fresh prompts tuck into
 other rows' padding columns as extra segments to free more rows. The
 packed step runs only when it spreads; otherwise the one-row-per-slot
-step runs unchanged. Serving on a device mesh (the reference engine's
-mesh=) is the next slice of the port's mesh work; a model built on a mesh
-refuses the serving calls (Model.prefill_chunk).
+step runs unchanged.
+
+`mesh=` (a DeviceMesh from launch.mesh.make_host_mesh; one process per
+rank, every rank builds the engine with the same arguments) serves on the
+mesh as the reference engine does: the model is rebuilt on it, the expert
+weights and the slot cache are cut to the rank's blocks with the training
+layouts (distributed.param_specs, distributed.cache_specs), every other
+weight is held whole on every rank (Model.serving_param_specs), the router
+states stay replicated, and every step's operands are whole on every rank (see
+models.model for the attention and the MoE layers). Every rank then takes
+the same host decisions: the planner is deterministic, greedy ids are
+computed from logits that are the same on every rank, and with
+temperature > 0 rank 0 samples and broadcasts the ids (one small
+collective per step). Only rank 0 writes the sink and the profile.
 
 `greedy_generate` is the reference's batched greedy decoding: through the
 engine for the token families, through the per-token path
@@ -45,7 +56,11 @@ class ContinuousBatchingEngine:
 
     Runs on `model.device`. `use_kernel` overrides the config's
     routing.use_kernel: True sends the expert FFN through the CUDA kernel
-    pair (kernels/moe_gemm.py) without touching the config file.
+    pair (kernels/moe_gemm.py) without touching the config file. `mesh`
+    serves on a device mesh (see the module doc); `params` are then the
+    whole params, cut here. Attention-only stacks whose slots divide over
+    the data ranks and KV heads over the model ranks (the slot cache
+    raises otherwise).
     """
 
     def __init__(
@@ -69,6 +84,7 @@ class ContinuousBatchingEngine:
         sink=None,
         profile=None,
         profile_dir: str = "profile",
+        mesh=None,
     ):
         cfg = model.cfg
         if use_kernel is not None and cfg.is_moe and use_kernel != cfg.routing.use_kernel:
@@ -76,6 +92,16 @@ class ContinuousBatchingEngine:
                 cfg, routing=dataclasses.replace(cfg.routing, use_kernel=use_kernel)
             )
             model = Model(cfg, device=model.device)
+        if mesh is not None:
+            import torch.distributed as dist
+
+            from repro_torch.distributed import make_mesh_ctx, shard_tree
+            from repro_torch.models.model import build_model
+
+            model = build_model(cfg, make_mesh_ctx(mesh), device=model.device)
+            params = shard_tree(params, model.serving_param_specs(), mesh)
+            if dist.get_rank() != 0:  # rank 0 writes the sink and the profile
+                sink, profile = None, None
         if cfg.is_moe and not get_balancer(cfg.routing.strategy).serving_ok:
             raise NotImplementedError(
                 f"routing strategy {cfg.routing.strategy!r} is training-only; "
@@ -85,6 +111,7 @@ class ContinuousBatchingEngine:
             # a chunk must fit the sliding-window ring buffer
             chunk_size = min(chunk_size, cfg.window_size, max_seq_len)
         self.model = model
+        self.mesh = mesh
         self.device = model.device
         self.params = params
         self.n_slots = n_slots
@@ -194,7 +221,17 @@ class ContinuousBatchingEngine:
     def _sample(self, last: Tensor, mets):
         """Next token per row of `last` (n, vocab), greedy or through the
         engine's generator, and the step's metrics, on the host."""
-        if self.temperature > 0.0:
+        if self.temperature > 0.0 and self.mesh is not None:
+            import torch.distributed as dist
+
+            # rank 0 draws, every rank takes its ids: one stream of draws
+            if dist.get_rank() == 0:
+                nxt = torch.multinomial(torch.softmax(last / self.temperature, dim=-1), 1,
+                                        generator=self._gen)[:, 0]
+            else:
+                nxt = torch.empty((last.shape[0],), dtype=torch.int64, device=last.device)
+            dist.broadcast(nxt, src=0)
+        elif self.temperature > 0.0:
             probs = torch.softmax(last / self.temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
         else:

@@ -43,7 +43,12 @@ compute dtype at its use site, so gradients arrive in fp32.
   the batch split), the gradients arrive as blocks (the model
   gathers leaves at use), AdamW updates the blocks, and the clipping norm
   is psum'd over the ranks that hold distinct blocks of each leaf.
-  Checkpoints and microbatches on a mesh are the next slice (they raise).
+  Microbatch i of a mesh step is rows [i*B/k, (i+1)*B/k) of the global
+  batch, as in the reference, and each rank takes its block of each
+  (`shard_batch`). Checkpoints of a mesh run are the same files, whole:
+  saves gather onto rank 0, restores cut every rank's blocks from the
+  file (checkpoint.store), and the guard's rollback and the SIGTERM save
+  run on every rank at the same step.
 
 Differences from the reference, by design of an eager port: the AdamW
 update is in place (params and moments are updated under torch.no_grad();
@@ -112,6 +117,35 @@ def unused_leaves(cfg, params) -> Set[str]:
     if not cfg.n_enc_layers:
         return set()
     return {path for path, _ in _adamw.tree_paths(params) if _ENCODER_CROSS.match(path)}
+
+
+def _state_specs(model: Model, state: "TrainState") -> "TrainState":
+    """The spec tree of a TrainState on the model's mesh (params and both
+    moments as the model's MeshCtx.param_specs, the router states and the
+    step replicated), from the specs alone: `state` may hold blocks."""
+    from repro_torch.distributed import router_state_specs
+
+    pspecs = model.mesh_ctx.param_specs
+    return TrainState(params=pspecs, opt_state={"step": (), "mu": pspecs, "nu": pspecs},
+                      router_states=router_state_specs(state.router_states))
+
+
+def micro_layout(cfg, mesh, batch: Dict[str, Any], microbatches: int = 1) -> Dict[str, tuple]:
+    """distributed.batch_layout of one microbatch of `batch` (B / k rows):
+    split over the data axes when those rows divide, else replicated."""
+    return batch_layout(cfg, mesh, _split_micro(batch, microbatches)[0])
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], b_specs, mesh, microbatches: int = 1):
+    """This rank's share of a global batch for a step of `microbatches`
+    microbatches laid out by `b_specs` (`micro_layout`): its block of each
+    microbatch (rows [i*B/k, (i+1)*B/k) of the global batch, the
+    reference's `_split_micro`), concatenated in order, so that the step's
+    own split of the rank's rows into k gives microbatch i's block."""
+    if microbatches == 1:
+        return shard_tree(batch, b_specs, mesh)
+    parts = [shard_tree(mb, b_specs, mesh) for mb in _split_micro(batch, microbatches)]
+    return {k: torch.cat([p[k] for p in parts]) for k in batch}
 
 
 def _split_micro(batch: Dict[str, torch.Tensor], k: int) -> List[Dict[str, torch.Tensor]]:
@@ -216,13 +250,12 @@ def make_train_step(
     A model on a mesh (`build_model(cfg, mesh_ctx)`) makes this one rank's
     step: `state` holds its blocks, `batch` its rows of the global batch
     (or the whole batch on every rank: MeshCtx.tokens_sharded False, see
-    compile_train_step), and the clipping norm is `sharded_grad_norm`. No
-    microbatches on a mesh yet."""
+    compile_train_step), and the clipping norm is `sharded_grad_norm`,
+    taken once, of the averaged gradients. With microbatches the rank's
+    rows are its blocks of the k microbatches in order (`shard_batch`)."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     mesh = model.mesh_ctx.mesh
-    if mesh is not None and microbatches > 1:
-        raise NotImplementedError("microbatches on a mesh are the next slice of the port")
 
     def fwd_bwd(params, leaves, batch, router, inject_nan):
         with named_span("train/fwd_bwd"):
@@ -335,8 +368,8 @@ def compile_train_step(
     the step expects the rank's blocks of a state laid out as
     `distributed.train_state_specs` gives (`st_specs`, where the caller
     has them, is checked against the model's layout: ValueError) and the
-    rank's rows of a batch laid out by `b_specs` (default:
-    distributed.batch_layout of `batch`)."""
+    rank's rows of a batch laid out by `b_specs` (default: `micro_layout`
+    of `batch`, each microbatch's layout), as `shard_batch` cuts them."""
     if mesh is not None:
         if model.mesh_ctx.mesh is not mesh:
             raise ValueError("compile_train_step(mesh=): build the model with "
@@ -344,7 +377,9 @@ def compile_train_step(
         if st_specs is not None and st_specs.params != model.mesh_ctx.param_specs:
             raise ValueError("compile_train_step(mesh=): st_specs lay the params out otherwise than "
                              "the model's MeshCtx.param_specs")
-        model = _on_batch_layout(model, batch_layout(model.cfg, mesh, batch) if b_specs is None else b_specs)
+        if b_specs is None:
+            b_specs = micro_layout(model.cfg, mesh, batch, microbatches)
+        model = _on_batch_layout(model, b_specs)
     return make_train_step(model, opt_cfg, lr_fn, microbatches=microbatches, guarded=guarded,
                            telemetry=telemetry)
 
@@ -492,12 +527,14 @@ def train_loop(
       make_mesh_ctx(mesh))`): every rank runs this loop on the same global
       batches; a given `state` is the whole one and is cut to the rank's
       blocks (`distributed.shard_tree`), a fresh one is initialised whole
-      and cut, each batch is cut to the rank's rows, and the returned state
-      holds the rank's blocks (`distributed.unshard_tree` gathers them).
+      and cut, each batch is cut to the rank's rows (`shard_batch`), and
+      the returned state holds the rank's blocks (`distributed.unshard_tree`
+      gathers them). Checkpoints are collectives there (every rank saves
+      and restores at the same step; rank 0 writes), and the SIGTERM flag
+      is agreed over the mesh (a max) at each step boundary, so a rank
+      that did not get the signal saves with the others.
     """
     opt_cfg = _adamw.from_model_config(model.cfg)
-    if mesh is not None and (ckpt_dir is not None or resume):
-        raise NotImplementedError("checkpoints of a sharded state are the next slice of the port")
     # the step is built before any data is read: a bad microbatch count fails first
     guarded = guard is not None or (faults is not None and faults.get("nan_grad") is not None)
     lr_fn = linear_warmup_cosine(lr, warmup_steps, total_steps)
@@ -505,8 +542,9 @@ def train_loop(
     if mesh is None:
         step_fn = make_train_step(model, opt_cfg, lr_fn, microbatches=microbatches, guarded=guarded,
                                   telemetry=telemetry)
-    elif microbatches > 1:
-        raise NotImplementedError("microbatches on a mesh are the next slice of the port")
+    elif microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    lead = mesh is None or torch.distributed.get_rank() == 0  # the rank that writes on a mesh
 
     manager = None
     if ckpt_dir is not None:
@@ -517,25 +555,35 @@ def train_loop(
     is_stream = hasattr(batches, "state_dict") and hasattr(batches, "load_state_dict")
     start_step = 0
     data_state = None
+    sharded = False  # the state holds this rank's blocks already
     if resume and manager is not None and state is None:
         from repro_torch.checkpoint import latest_step
 
-        if latest_step(ckpt_dir) is not None:
+        if mesh is not None:
+            got = manager.restore_sharded(model.cfg, mesh, device=model.device)
+            if got is not None:
+                start_step, state = got
+                sharded = True
+        elif latest_step(ckpt_dir) is not None:
             start_step, state = manager.restore_train_state(model.cfg, device=model.device)
+        if state is not None:
             data_state = manager.restore_data_state(start_step)
     st_specs = b_specs = None
     if mesh is not None:
         if state is None:  # initialised whole, then cut; the moments start as blocks
-            pspecs = model.mesh_ctx.param_specs
-            params = shard_tree(model.init(seed), pspecs, mesh)
+            params = shard_tree(model.init(seed), model.mesh_ctx.param_specs, mesh)
             state = TrainState(params, _adamw.adamw_init(params, opt_cfg), model.init_router_states())
-            st_specs = TrainState(params=pspecs, opt_state={"step": (), "mu": pspecs, "nu": pspecs},
-                                  router_states=None)
-        else:
-            st_specs = train_state_specs(state, model.cfg, mesh)
-            state = shard_tree(state, st_specs, mesh)
+        elif not sharded:
+            state = shard_tree(state, train_state_specs(state, model.cfg, mesh), mesh)
+        st_specs = _state_specs(model, state)
     elif state is None:
         state = init_train_state(model, seed, opt_cfg)
+
+    def restore():
+        """The newest valid checkpoint, as this loop holds its state."""
+        if mesh is None:
+            return manager.restore_train_state(model.cfg, device=model.device)
+        return manager.restore_sharded(model.cfg, mesh, device=model.device)
 
     loop_start = 0  # the step index the loop starts at
     if is_stream and data_state is not None:
@@ -577,9 +625,10 @@ def train_loop(
 
     def save(block: bool) -> None:
         path = manager.save_train_state(
-            state, model.cfg, data_state=batches.state_dict() if is_stream else None, block=block
+            state, model.cfg, data_state=batches.state_dict() if is_stream else None, block=block,
+            mesh=mesh, specs=st_specs,
         )
-        if faults is not None and faults.get("ckpt_corrupt") is not None:
+        if lead and faults is not None and faults.get("ckpt_corrupt") is not None:
             manager.wait()  # the file must be fully written before corrupting
             if faults.corrupt_after_save(path):
                 ev = {"step": i, "kind": "ckpt_corrupted", "path": path}
@@ -604,11 +653,11 @@ def train_loop(
             batch = batch_to_torch(batch, model.device)
             if mesh is not None:
                 if step_fn is None:
-                    b_specs = batch_layout(model.cfg, mesh, batch)
+                    b_specs = micro_layout(model.cfg, mesh, batch, microbatches)
                     step_fn = compile_train_step(model, opt_cfg, lr_fn, state, batch, mesh=mesh,
-                                                 st_specs=st_specs, b_specs=b_specs, guarded=guarded,
-                                                 telemetry=telemetry)
-                batch = shard_tree(batch, b_specs, mesh)
+                                                 microbatches=microbatches, st_specs=st_specs,
+                                                 b_specs=b_specs, guarded=guarded, telemetry=telemetry)
+                batch = shard_batch(batch, b_specs, mesh, microbatches)
             if telemetry is not None:
                 telemetry.before_step(i)  # the profiler window, if configured
             t0 = time.perf_counter()
@@ -632,7 +681,7 @@ def train_loop(
                 log.events = tguard.events
                 stream_events()
                 if action == ROLLBACK:
-                    r_step, state = manager.restore_train_state(model.cfg, device=model.device)
+                    r_step, state = restore()
                     ds = manager.restore_data_state(r_step)
                     if ds is None:
                         raise TrainingDiverged(
@@ -659,7 +708,12 @@ def train_loop(
             if manager is not None and ckpt_every and (i + 1) % ckpt_every == 0:
                 save(block=not async_ckpt)
                 saved_at = i
-            if sig_flag["term"]:
+            term = sig_flag["term"]
+            if mesh is not None and manager is not None:  # every rank saves, or none
+                with collectives.axis_env(mesh):
+                    flag = torch.tensor(float(term), device=model.device)
+                    term = bool(collectives.pmax(flag, tuple(mesh.mesh_dim_names)) > 0)
+            if term:
                 save(block=True)  # preemption: make the state durable NOW
                 saved_at = i
                 ev = {"step": i, "kind": "sigterm_checkpoint"}

@@ -246,3 +246,259 @@ def train_checks(rank, world, workdir, impls, loop_steps):
     out["loop_vio"] = np.stack(log.max_vio_steps)
     out["loop_q"] = np.concatenate([_np(s["q"]) for s in st.router_states if s is not None])
     return out
+
+
+# ------------------------------------------------------------- serving
+
+
+SERVE_STRATEGIES = ("topk", "bip")
+# a prompt of more than two chunks beside two short ones, 4 slots x chunk 8
+# on 4 data ranks: its chunks spread onto rows whose slots other data
+# ranks hold
+PACKED_PROMPTS = (21, 4, 6)
+
+
+def serve_cfg(configs, strategy):
+    """The reference test's engine config (tests/test_serving_mesh.py:25):
+    reduced minimind-16e, vocab 128, sync='global', capacity factor 4."""
+    cfg = configs.reduced_for_smoke("minimind_moe_16e", vocab_size=128)
+    return dataclasses.replace(cfg, routing=dataclasses.replace(
+        cfg.routing, sync="global", strategy=strategy, capacity_factor=4.0))
+
+
+def serve_prompts(packed=False):
+    """The reference test's six seeded prompts, or the packed case's."""
+    rng = np.random.default_rng(0)
+    if packed:
+        return [rng.integers(0, 128, (n,)).tolist() for n in PACKED_PROMPTS]
+    return [rng.integers(0, 128, (int(rng.integers(3, 20)),)).tolist() for _ in range(6)]
+
+
+def record_plans(eng):
+    """Wrap the engine's planner: every step's operand arrays (or None)."""
+    plans, orig = [], eng._plan_packed
+
+    def wrapped(active):
+        out = orig(active)
+        plans.append(None if out is None else [np.asarray(a) for a in out[:-1]])
+        return out
+
+    eng._plan_packed = wrapped
+    return plans
+
+
+def serve_stream(engine_cls, model, params, prompts, gen, mesh=None, plans=False):
+    """The reference test's loop: 4 slots x chunk 8, submit with
+    backpressure, step until done. Returns (tokens, expert load, plans)."""
+    eng = engine_cls(model, params, n_slots=4, chunk_size=8, max_seq_len=64, mesh=mesh)
+    log = record_plans(eng) if plans else None
+    reqs = []
+    for p in prompts:
+        r = eng.submit(p, gen, ignore_eos=True)
+        while r is None:
+            eng.step()
+            r = eng.submit(p, gen, ignore_eos=True)
+        reqs.append(r)
+    while eng.scheduler.has_work:
+        eng.step()
+    return [r.output for r in reqs], eng.expert_load.copy(), log
+
+
+def serve_checks(rank, world, workdir):
+    """Everything test_torch_serve_mesh.py asks of a rank: the engine on the
+    4x2 mesh from the reference's params (serve_params.pkl, converted) for
+    each strategy, the packed case with its plans, and the refusals."""
+    import pickle
+
+    from repro_torch import configs
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    mesh = make_host_mesh(4, 2)
+    with open(workdir / "serve_params.pkl", "rb") as f:
+        tree = pickle.load(f)
+    out = {}
+    for strategy in SERVE_STRATEGIES:
+        cfg = serve_cfg(configs, strategy)
+        model = Model(cfg, device="cpu")
+        params = params_from_numpy(tree, cfg, "cpu")
+        out[strategy] = serve_stream(ContinuousBatchingEngine, model, params, serve_prompts(), 5, mesh)[:2]
+    cfg = serve_cfg(configs, "topk")
+    out["packed"] = serve_stream(ContinuousBatchingEngine, Model(cfg, device="cpu"),
+                                 params_from_numpy(tree, cfg, "cpu"), serve_prompts(True), 4, mesh, plans=True)
+    refusals = {}
+    mamba = configs.reduced_for_smoke("mamba2_130m")
+    for name, model, n_slots in (("mamba", Model(mamba, device="cpu"), 4), ("slots", Model(cfg, device="cpu"), 6)):
+        try:
+            ContinuousBatchingEngine(model, model.init(0), n_slots=n_slots, chunk_size=8, max_seq_len=32,
+                                     mesh=mesh)
+            refusals[name] = None
+        except (NotImplementedError, ValueError) as e:
+            refusals[name] = (type(e).__name__, str(e))
+    out["refusals"] = refusals
+    return out
+
+
+# -------------------------------------------- checkpoints, microbatches, sweep
+
+
+CKPT_STEPS, CKPT_AT = 4, 2
+ROLLBACK_NAN = 3  # nan_grad@step=3 under the rollback policy, a save every 2 steps
+
+
+def micro_cfg(configs):
+    """The reference's microbatch anchor (tests/test_train_sharded.py:466):
+    reduced minimind-16e, vocab 256, topk at capacity factor 8."""
+    cfg = configs.reduced_for_smoke("minimind_moe_16e", vocab_size=256)
+    return dataclasses.replace(cfg, routing=dataclasses.replace(cfg.routing, strategy="topk",
+                                                                capacity_factor=8.0))
+
+
+def _whole(state, model, mesh):
+    """The whole TrainState from every rank's blocks (a collective)."""
+    from repro_torch.distributed import unshard_tree
+    from repro_torch.training.loop import _state_specs
+
+    return unshard_tree(state, _state_specs(model, state), mesh)
+
+
+def _summary(state, log):
+    from repro_torch.optim.adamw import tree_paths
+
+    return {"losses": list(log.losses), "vio": np.stack(log.max_vio_steps),
+            "q": np.concatenate([_np(s["q"]) for s in state.router_states if s is not None]),
+            "params": {p: _np(v) for p, v in tree_paths(state.params)}}
+
+
+def _step_result(state):
+    """The params and AdamW's first moment of a whole TrainState, by path."""
+    from repro_torch.optim.adamw import tree_paths
+
+    return {"params": {p: _np(v) for p, v in tree_paths(state.params)},
+            "mu": {p: _np(v) for p, v in tree_paths(state.opt_state["mu"])}}
+
+
+def ckpt_checks(rank, world, workdir):
+    """Everything test_torch_mesh_ckpt.py asks of a rank on the 4x2 mesh:
+    a checkpointed and resumed bip run beside the straight one, a guarded
+    rollback, microbatched steps, and the sweep's --sync cells. Then ranks
+    1-4 each run one of the one-device references the test holds them to
+    (`one_device`), side by side, one thread each."""
+    import pickle
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.convert import train_state_from_numpy, train_state_to_tree
+    from repro_torch.data import SyntheticBatchStream, make_batches
+    from repro_torch.distributed import make_mesh_ctx, shard_tree, train_state_specs
+    from repro_torch.launch import balance_sweep
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.robustness import FaultPlan, GuardConfig
+    from repro_torch.training import compile_train_step, train_loop
+    from repro_torch.training.loop import micro_layout, shard_batch
+
+    mesh = make_host_mesh(4, 2)
+    out = {}
+    # resume: CKPT_STEPS straight steps against CKPT_AT with a save there, then a resume
+    cfg = train_cfg(configs, sync_global=True)
+    model = build_model(cfg, make_mesh_ctx(mesh), device="cpu")
+    kw = dict(lr=1e-3, warmup_steps=2, total_steps=CKPT_STEPS, mesh=mesh)
+    stream = lambda: SyntheticBatchStream(cfg, 8, 64, CKPT_STEPS, seed=0)  # noqa: E731
+    st, log = train_loop(model, stream(), **kw)
+    out["straight"] = _summary(_whole(st, model, mesh), log)
+    ck = str(workdir / "ck")
+    st, log = train_loop(model, stream(), ckpt_dir=ck, ckpt_every=CKPT_AT, **dict(kw, total_steps=CKPT_AT))
+    whole = _whole(st, model, mesh)
+    out["saved"] = {k: None if v is None else _np(v) for k, v in _flatten(train_state_to_tree(whole, cfg)).items()}
+    first = list(log.losses)
+    st, log = train_loop(model, stream(), ckpt_dir=ck, ckpt_every=CKPT_AT, resume=True, **kw)
+    out["resumed"] = _summary(_whole(st, model, mesh), log)
+    out["resumed"]["losses"] = first + out["resumed"]["losses"]
+    # rollback: the NaN at step 3 rolls back to step 2's checkpoint and replays
+    st, log = train_loop(model, stream(), ckpt_dir=str(workdir / "ck_rb"), ckpt_every=2,
+                         guard=GuardConfig(policy="rollback"),
+                         faults=FaultPlan.from_specs([f"nan_grad@step={ROLLBACK_NAN}"]), **kw)
+    out["rollback"] = dict(_summary(_whole(st, model, mesh), log), events=[dict(e) for e in log.events])
+
+    # microbatches: one step of micro 1 and 2 (topk) from the reference's
+    # init, on a batch whose microbatches split over the data ranks and on
+    # one whose microbatches do not (replicated)
+    with open(workdir / "micro_state.pkl", "rb") as f:
+        micro_state = pickle.load(f)
+    mcfg = micro_cfg(configs)
+    mmodel = build_model(mcfg, make_mesh_ctx(mesh), device="cpu")
+    opt = adamw.from_model_config(mcfg)
+    for rows in (8, 4):
+        batch = next(iter(make_batches(mcfg, rows, 32, 1, seed=0)))
+        for k in (1, 2):
+            state = train_state_from_numpy(*micro_state, mcfg, "cpu")
+            specs = train_state_specs(state, mcfg, mesh)
+            b_specs = micro_layout(mcfg, mesh, batch, k)
+            step = compile_train_step(mmodel, opt, schedules.constant(1e-3), state, batch, mesh=mesh,
+                                      microbatches=k, st_specs=specs, b_specs=b_specs)
+            local, mets = step(shard_tree(state, specs, mesh), shard_batch(batch, b_specs, mesh, k))
+            out[f"micro_{rows}_{k}"] = {"loss": float(mets["loss"]), "split": b_specs["tokens"][0] is not None,
+                                        **_step_result(_whole(local, mmodel, mesh))}
+    # bip, sync='global', two microbatches: two steps of train_loop
+    st, log = train_loop(model, stream(), microbatches=2, **dict(kw, total_steps=2))
+    out["micro_bip"] = _summary(_whole(st, model, mesh), log)
+
+    # the sweep's cross-shard cells, 2 steps from the reference's init
+    with open(workdir / "sweep_state.pkl", "rb") as f:
+        sweep_state = pickle.load(f)
+    scfg = balance_sweep.sweep_cfg("minimind_moe_16e")
+    for sync in ("global", "local"):
+        rec = balance_sweep.run_method(scfg, "bip", 2, lr=1e-3, sync=sync, use_kernel=False, mesh=mesh,
+                                       state=train_state_from_numpy(*sweep_state, scfg, "cpu"), device="cpu")
+        out[f"sweep_{sync}"] = {k: rec[k] for k in ("sync", "mesh", "max_vio_per_step", "ppl_per_step",
+                                                     "first_step_max_vio")}
+    out["one_device"] = one_device_reference(rank, workdir, micro_state)
+    return out
+
+
+def one_device_reference(rank, workdir, micro_state):
+    """Rank r in 1-4 runs the r-th one-device reference of
+    test_torch_mesh_ckpt.py on its own (no collective): 1 the resume from
+    the mesh's step-CKPT_AT file, 2 the guarded rollback run, 3 bip with
+    two microbatches, 4 one microbatched topk step from the reference's
+    init. Others return None."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.data import SyntheticBatchStream, make_batches
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.robustness import FaultPlan, GuardConfig
+    from repro_torch.training import make_train_step, train_loop
+
+    cfg = train_cfg(configs, sync_global=True)
+    stream = lambda: SyntheticBatchStream(cfg, 8, 64, CKPT_STEPS, seed=0)  # noqa: E731
+    kw = dict(lr=1e-3, warmup_steps=2, total_steps=CKPT_STEPS)
+    if rank == 1:
+        one = workdir / "ck_one_device"
+        one.mkdir()
+        for suffix in (".npz", ".manifest.json", ".data.json"):
+            shutil.copy(workdir / "ck" / f"step_{CKPT_AT}{suffix}", one)
+        st, log = train_loop(Model(cfg, device="cpu"), stream(), ckpt_dir=str(one), resume=True, **kw)
+        return _summary(st, log)
+    if rank == 2:
+        st, log = train_loop(Model(cfg, device="cpu"), stream(), ckpt_dir=str(workdir / "ck_rb_one"), ckpt_every=2,
+                             guard=GuardConfig(policy="rollback"),
+                             faults=FaultPlan.from_specs([f"nan_grad@step={ROLLBACK_NAN}"]), **kw)
+        return dict(_summary(st, log), events=[dict(e) for e in log.events])
+    if rank == 3:
+        st, log = train_loop(Model(cfg, device="cpu"), stream(), microbatches=2, **dict(kw, total_steps=2))
+        return _summary(st, log)
+    if rank == 4:
+        mcfg = micro_cfg(configs)
+        state = train_state_from_numpy(*micro_state, mcfg, "cpu")
+        step = make_train_step(Model(mcfg, device="cpu"), adamw.from_model_config(mcfg),
+                               schedules.constant(1e-3), microbatches=2)
+        state, mets = step(state, next(iter(make_batches(mcfg, 8, 32, 1, seed=0))))
+        return {"loss": float(mets["loss"]), **_step_result(state)}
+    return None

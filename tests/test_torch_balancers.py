@@ -361,8 +361,10 @@ def test_runner_cli_on_cpu(tmp_path, capsys):
     with pytest.raises(SystemExit):
         balance_sweep.main(["--device", "cpu", "--steps", "1", "--out", str(bench)])
     assert not bench.exists()
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    capsys.readouterr()
+    with pytest.raises(SystemExit):  # the cross-shard lens runs under torch.distributed.run only
         balance_sweep.main(["--device", "cpu", "--sync", "global"])
+    assert "torch.distributed.run --nproc-per-node 8" in capsys.readouterr().err
 
 
 def test_router_level_compare_against_the_lp_oracle():

@@ -289,9 +289,9 @@ def test_train_step_refuses_what_is_not_ported(tmp_path):
     router-dual watchdog and the forecaster are ported; what is still
     refused: a batch that does not split into the microbatches
     (ValueError), the reference launcher's TPU-pod flags, which the port's
-    launcher does not accept, and on a mesh (--mesh, tests/
-    test_torch_train_mesh.py) checkpoints, microbatches (the next slice,
-    ROADMAP.md queue 1, item 7) and a malformed shape."""
+    launcher does not accept, and --mesh (tests/test_torch_train_mesh.py,
+    tests/test_torch_mesh_ckpt.py) with a malformed shape or outside
+    torch.distributed.run, with or without checkpoints and microbatches."""
     tm = Model(_cfgs()[1], device="cpu")
     opt = adamw.from_model_config(tm.cfg)
     step = make_train_step(tm, opt, schedules.constant(1e-3), microbatches=2)
@@ -308,7 +308,7 @@ def test_train_step_refuses_what_is_not_ported(tmp_path):
 
     base = ["--arch", "minimind-moe-16e", "--reduced", "--device", "cpu", "--steps", "1"]
     for flags in (["--production"], ["--multi-pod"], ["--coordinator", "h:1"], ["--num-hosts", "2"],
-                  ["--host-id", "1"], ["--mesh", "2x1", "--micro", "2"],
+                  ["--host-id", "1"], ["--mesh", "2x1"], ["--mesh", "2x1", "--micro", "2"],
                   ["--mesh", "2x1", "--ckpt-dir", str(tmp_path / "ck")], ["--mesh", "2by1"]):
         with pytest.raises(SystemExit):
             train.main(base + flags)
