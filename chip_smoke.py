@@ -154,10 +154,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      compute, AdamW at the config's moment dtypes, synthetic batches (2 x
      2048 tokens; mamba2-130m 8 x 2048; seamless 2 x 1024 with frames (2,
      4096, 1024); paligemma 2 x 1024 after its 256 patches), depth cut by
-     whole periods (phi4-mini 16, zamba2 24, gemma2 2, deepseek-coder 4,
-     llama4-scout 2) and remat='block' where the activations would not
-     fit (mamba2-130m, stablelm, seamless, phi4-mini, zamba2); arctic-480b does not
-     train on one card at any depth. Each is built, trained, checked and
+     whole periods (mamba2-130m 12, stablelm 12, seamless 12 + 12 encoder
+     layers, paligemma 9, phi4-mini 8, zamba2 12, gemma2 2,
+     deepseek-coder 4, llama4-scout 2) and remat='block' where the
+     activations would not fit (mamba2-130m, stablelm, seamless,
+     phi4-mini, zamba2); arctic-480b does not train on one card at any
+     depth. Each is built, trained, checked and
      freed in turn: six steps on one fixed batch (finite losses, step 5's
      below step 0's, a finite gradient everywhere, no leaf without a
      gradient but seamless's encoder cross leaves), tokens/s, step
@@ -191,10 +193,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      bf16 the share of equal tokens is printed. Phase 4's prompts of
      16-96 tokens pack wherever rows are free, too.
  17. expert-parallel training on a torch.distributed mesh, minimind-moe-16e
-     and 64e at full width, bip sync='global' with K3's collective form
-     (capacity factor MESH_CAPACITY_FACTOR): (a) world size 1 over NCCL on
-     a 1x1 mesh through `ep`: 3 steps of train_loop(mesh=) with exactly
-     8 / 72 / 64 / 0 K1 / K2 / single-pass K3 / fused K3 launches per step,
+     and 64e at full width, 4 of their 8 layers (MESH_LAYERS), bip
+     sync='global' with K3's collective form (capacity factor
+     MESH_CAPACITY_FACTOR): (a) world size 1 over NCCL on a 1x1 mesh
+     through `ep`: 3 steps of train_loop(mesh=) with exactly 1 / 9 / 2T /
+     0 K1 / K2 / single-pass K3 / fused K3 launches per MoE layer per step,
      then 3 steps each against the single-device step (fused K3) on the
      same state and batch: q bit-equal per layer, loss and params within
      fp32 rounding; K3's single pass timed at the shapes the phase runs
@@ -216,8 +219,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      time inside the collective calls. The K1/K2 operand shapes of (b) are
      checked and timed in phase 7's trace.
  18. serving, checkpoints and microbatches on a mesh, minimind-moe-16e at
-     full width: (a) world size 1 over NCCL on a 1x1 mesh, phase 4's 32
-     requests (16 slots x chunk 32; topk and bip) and phase 16's packed
+     full width unless stated: (a) world size 1 over NCCL on a 1x1 mesh,
+     phase 4's 32 requests (16 slots x chunk 32; topk and bip) and phase 16's packed
      set (bip) through ContinuousBatchingEngine(mesh=) against the
      one-device engine on the same weights, SERVE_MESH_GEN greedy tokens
      each: tokens and step counts equal, topk's loads equal, bip's load
@@ -227,24 +230,38 @@ Phases, in order; any failure raises and the script exits non-zero:
      bip fp32 control with sync='global', 8 slots x chunk 32, capacity
      factor SERVE_MESH_CAPACITY_FACTOR, two prompts of 256 tokens whose
      chunks spread onto rows of both data ranks and six of 8-24) against
-     one device: every rank the same tokens, 8 / 8 K1/K2 launches per
-     step on every rank, the topk control's tokens and loads equal and
-     first-token logits within PACKED_FP32_TOL, the bip control's load
-     totals equal, its drift from one device over the run (tokens, the
-     loads' L1, the per-step duals) within MESH_NUDGE_FACTOR times one
-     device's own from params nudged by one ulp (plus SERVE_MESH_L1 and
-     MESH_NUDGE_FLOOR), and its first step's duals within
-     SERVE_STEP0_Q_TOL and loads within SERVE_MESH_L1; the bf16 runs'
-     share of equal tokens printed with steps, step p50, the host time
-     inside collective calls and peak memory per rank; 16e through `ep`
-     in bf16 for CKPT_MESH_AT steps with an async save at the last, the
-     file (read at world 1 on rank 0) bit-equal to the state gathered
-     from the ranks, then a fresh state resumed from it for step
-     CKPT_MESH_AT: loss, q and params bit-equal on every rank to a
-     straight CKPT_MESH_STEPS-step run, exact launches, and the gather,
-     stall, writer and peak-memory numbers; one fp32 step of topk
-     micro 2 against micro 1 (MICRO_TOL) and of bip micro 2 against one
-     device's micro 2 (MESH_STEP0_TOL, with its witnesses).
+     one device: every rank the same tokens, one K1 and one K2 launch per
+     MoE layer per step on every rank, the topk control's tokens and loads equal and first-token
+     logits within PACKED_FP32_TOL, the bip control's load totals equal,
+     its drift from one device over the run (tokens, the loads' L1, the
+     per-step duals) within MESH_NUDGE_FACTOR times one device's own from
+     params nudged by one ulp (plus SERVE_MESH_L1 and MESH_NUDGE_FLOOR),
+     and its first step's duals within SERVE_STEP0_Q_TOL and loads within
+     SERVE_MESH_L1; the bf16 runs' share of equal tokens printed with
+     steps, step p50, the host time inside collective calls and peak
+     memory per rank; then, at MESH_LAYERS, 16e through `ep` in bf16 for
+     CKPT_MESH_AT steps with an async save at the last, the file (read
+     at world 1 on rank 0) bit-equal to the state gathered from the
+     ranks, then a fresh
+     state resumed from it for step CKPT_MESH_AT: loss, q and params
+     bit-equal on every rank to a straight CKPT_MESH_STEPS-step run,
+     exact launches, and the gather, stall, writer and peak-memory
+     numbers; one fp32 step of topk micro 2 against micro 1 (MICRO_TOL)
+     and of bip micro 2 against one device's micro 2 (MESH_STEP0_TOL,
+     with its witnesses); (c) inside the same spawn, the cache layouts
+     (b) does not take (LAYOUT_RUNS): mamba2-130m at full width and
+     zamba2-7b at its published width (depth cut to whole shared-block
+     periods), 4 slots, six prompts of 8-64 tokens, their SSM heads and
+     conv channels over the model ranks, and one 512-token minimind-16e
+     request (1 slot, max_seq_len 1024, chunk 128, topk and bip with
+     sync='global'), whose cache splits its length over the data ranks,
+     against one device on the same params: every rank the same tokens,
+     the layout LAYOUT_SPECS names, the same steps, exactly one K1 and
+     one K2 launch per MoE layer per step (8 / 8) on every rank of the
+     MoE runs; the fp32 controls' tokens and loads equal and first-token
+     logits within PACKED_FP32_TOL; the bf16 runs' drift within
+     MESH_NUDGE_FACTOR times one device's own from params nudged by one
+     bf16 ulp (plus LAYOUT_FLOOR); seconds per part on rank 0.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
 that outlives it (nvcc and nvidia-smi run to completion; phase 17's ranks
@@ -603,29 +620,43 @@ def dual_inputs(torch, n, m, gen, warm, device="cuda"):
     return s, q0
 
 
-def k3_device_ms(torch, calls, reps=50):
+def k3_device_ms(torch, calls, reps=50, attempts=2):
     """Mean device time of K3 (either mode) for each labelled call,
     from ONE torch.profiler trace (each further trace of the run risks one
     that records nothing): the calls of each label run back to back, then
     the device idles LABEL_GAP_S, and the kernel's records are split at
-    those gaps (split_at_gaps)."""
+    those gaps (split_at_gaps). The trace opens with reps matmuls and an
+    idle gap before the first label, since a fresh trace has dropped most
+    of the records at its start (11 of the first label's 50). A trace that
+    still sees fewer than half of some label's records is taken once more,
+    and said so; the second is held to the same check."""
     from torch.profiler import ProfilerActivity, profile
 
     for fn in calls.values():
         fn()
+    a = torch.randn(1024, 1024, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for fn in calls.values():
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                fn()
+                a @ a  # not K3: its records are filtered out below
             torch.cuda.synchronize()
             time.sleep(LABEL_GAP_S)
-    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "bip_dual_update_kernel" in e.name), key=lambda e: e.time_range.start)
-    groups = split_at_gaps(ev, len(calls))
-    if any(not reps // 2 <= len(g) <= reps for g in groups):
-        raise AssertionError(f"profiler saw {[len(g) for g in groups]} records of the dual update "
-                             f"for {len(calls)} x {reps} calls")
+            for fn in calls.values():
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(LABEL_GAP_S)
+        ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "bip_dual_update_kernel" in e.name), key=lambda e: e.time_range.start)
+        groups = split_at_gaps(ev, len(calls))
+        if all(reps // 2 <= len(g) <= reps for g in groups):
+            break
+        msg = (f"profiler saw {[len(g) for g in groups]} records of the dual update "
+               f"for {len(calls)} x {reps} calls")
+        if attempt == attempts:
+            raise AssertionError(msg)
+        print(f"  K3 trace {attempt}: {msg}; tracing once more")
     return {label: sum(e.time_range.elapsed_us() for e in g) / len(g) / 1e3
             for label, g in zip(calls, groups)}
 
@@ -1857,15 +1888,18 @@ def families(torch, np, configs, mods):
 
 # phase 15: the families trained at full width. Every width is the
 # published one; only depth is cut, by whole periods, where one H100 cannot
-# hold params, gradients, Adam moments and activations. remat='block' where
-# the activations would not fit beside them (the reckoning is in PERF.md)
+# hold params, gradients, Adam moments and activations, and (since phase
+# 18(c) came) to half the depth trained before for the script's time limit
+# (mamba2, stablelm, seamless's decoder and encoder, paligemma, phi4,
+# zamba2). remat='block' where the activations would not fit beside them
+# (the reckoning is in PERF.md)
 TRAIN_FAMILIES = (  # (arch id, depth trained (None: published), batch rows, tokens per row, remat)
-    ("mamba2_130m", None, 8, 2048, "block"),
-    ("stablelm_1_6b", None, 2, 2048, "block"),
-    ("seamless_m4t_large_v2", None, 2, 1024, "block"),
-    ("paligemma_3b", None, 2, 1024, "none"),
-    ("phi4_mini_3_8b", 16, 2, 2048, "block"),
-    ("zamba2_7b", 24, 2, 2048, "block"),
+    ("mamba2_130m", 12, 8, 2048, "block"),
+    ("stablelm_1_6b", 12, 2, 2048, "block"),
+    ("seamless_m4t_large_v2", 12, 2, 1024, "block"),  # and 12 of its 24 encoder layers
+    ("paligemma_3b", 9, 2, 1024, "none"),
+    ("phi4_mini_3_8b", 8, 2, 2048, "block"),
+    ("zamba2_7b", 12, 2, 2048, "block"),
     ("gemma2_27b", 2, 2, 2048, "none"),
     ("deepseek_coder_33b", 4, 2, 2048, "none"),
     ("llama4_scout_17b_a16e", 2, 2, 2048, "none"),
@@ -2095,7 +2129,8 @@ def train_families(torch, np, configs, mods):
     try:
         for arch, depth, rows, seq, remat in TRAIN_FAMILIES:
             full = configs.get(arch)
-            cfg = dataclasses.replace(full, n_layers=depth or full.n_layers, remat=remat)
+            cfg = dataclasses.replace(full, n_layers=depth or full.n_layers, remat=remat,
+                                      n_enc_layers=min(full.n_enc_layers, depth or full.n_layers))
             if cfg.is_moe:
                 cfg = dataclasses.replace(cfg, routing=dataclasses.replace(cfg.routing, use_kernel=True))
             out[arch] = train_family(torch, np, arch, cfg, full.n_layers, rows, seq, mods, out_dir)
@@ -2269,6 +2304,10 @@ def packed_serving(torch, configs, mods):
 
 # ------------------------------------------------------------------ phase 17
 MESH_ARCHS = ("minimind_moe_16e", "minimind_moe_64e")
+# the depth of phase 17's runs and of 18(b)'s checkpointed and microbatched
+# runs: 4 of 16e's and 64e's 8 layers, a cut made for the script's time
+# limit when phase 18(c) came (a 2x2 step took 2.3-8.6 s at full depth)
+MESH_LAYERS = {"minimind_moe_16e": 4, "minimind_moe_64e": 4}
 MESH_IMPLS = ("ep", "ep2ds")  # the gather-weights path and the reference's 'auto'
 # fp32-compute controls of 17(b), MESH_STEPS steps each: in bf16 the
 # model-axis psum of the combined outputs (and ep2ds's reduce-scatter of
@@ -2325,13 +2364,14 @@ GLOO_USED = ("all_reduce sum float32", "all_reduce sum int64", "all_reduce min",
 
 
 def mesh_cfg(configs, arch, impl, fp32=False):
-    """Full-width config of the mesh runs: bip with sync='global' and K3 on
-    (its collective form on a mesh), through the EP path `impl`, at
-    MESH_CAPACITY_FACTOR; the config's bf16 compute, or fp32 (`fp32`)."""
+    """Full-width config of the mesh runs, MESH_LAYERS deep: bip with
+    sync='global' and K3 on (its collective form on a mesh), through the EP
+    path `impl`, at MESH_CAPACITY_FACTOR; the config's bf16 compute, or
+    fp32 (`fp32`)."""
     import torch
 
     cfg = configs.get(arch)
-    cfg = dataclasses.replace(cfg, routing=dataclasses.replace(
+    cfg = dataclasses.replace(cfg, n_layers=MESH_LAYERS.get(arch) or cfg.n_layers, routing=dataclasses.replace(
         cfg.routing, sync="global", use_kernel=True, moe_impl=impl, capacity_factor=MESH_CAPACITY_FACTOR))
     return dataclasses.replace(cfg, compute_dtype=torch.float32) if fp32 else cfg
 
@@ -2404,11 +2444,11 @@ def mesh_world1(torch, configs, mods, tmp, dev="cuda"):
     wall = time.perf_counter() - t
     launches = read_launches(moe_gemm, bip_admm)
     per_step = mesh_per_step(cfg)
-    print(f"[mesh] (a) world 1 over {dist.get_backend()}, mesh 1x1, {cfg.name} full width, bip T="
+    print(f"[mesh] (a) world 1 over {dist.get_backend()}, mesh 1x1, {cfg.name} full width, {cfg.n_layers} layers, bip T="
           f"{cfg.routing.bip_iters} sync='global' use_kernel, moe_impl ep, batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
           f"train_loop(mesh=) {MESH_STEPS} steps, losses {[round(v, 4) for v in log.losses]}, wall {wall:.2f} s")
-    print(f"  launches {launches}; expected per step {per_step} (K3's collective form: 8 layers x T "
-          f"{cfg.routing.bip_iters} x 2 passes of the single-pass mode, against the fused form's 8)")
+    print(f"  launches {launches}; expected per step {per_step} (K3's collective form: {cfg.n_layers} layers x T "
+          f"{cfg.routing.bip_iters} x 2 passes of the single-pass mode, against the fused form's {cfg.n_layers})")
     for name, want in per_step.items():
         if launches[name] != want * MESH_STEPS:
             raise AssertionError(f"(a) {name}: {launches[name]} launches, expected {want * MESH_STEPS}")
@@ -2471,15 +2511,15 @@ def single_reference(torch, configs, mods, arch, dev, fp32, nudge=False):
     return rec
 
 
-def nudge_params(torch, params, dev):
-    """Move every param by about one ulp in place (x (1 +- 2^-23), signs
-    drawn from seed 1): a perturbation of the size of a changed summation
-    order."""
+def nudge_params(torch, params, dev, ulp=2.0**-23):
+    """Move every param by about one ulp in place (x (1 +- ulp), signs
+    drawn from seed 1; by default fp32's): a perturbation of the size of a
+    changed summation order."""
     gen = torch.Generator(device=dev).manual_seed(1)
     with torch.no_grad():
         for _, p in named_leaves(params):
             sign = torch.randint(0, 2, p.shape, generator=gen, device=p.device, dtype=torch.int8)
-            p.mul_(1.0 + 2.0**-23 * (2 * sign.to(p.dtype) - 1))
+            p.mul_(1.0 + ulp * (2 * sign.to(p.dtype) - 1))
             del sign
     return params
 
@@ -2733,6 +2773,8 @@ def mesh_rank(rank, world, workdir, root, device):
         torch.cuda.empty_cache()
     out["runs"] = runs
     out["p18"] = phase18_rank(torch, np, dist, rank, mesh, dev, workdir)
+    runs, part_s = phase18c_rank(torch, np, dist, rank, mesh, dev)
+    out["p18c"] = {"runs": runs, "part_s": part_s}
     with open(Path(workdir) / f"rank{rank}.json", "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -3284,7 +3326,8 @@ def mesh_phase18b(torch, np, ranks, refs):
     ck = [r["p18"]["ckpt"] for r in ranks]
     c0 = ck[0]
     saves = c0["saves"]
-    print(f"[ckpt-mesh] (b) minimind-16e through ep, bf16, {CKPT_MESH_AT} steps with an async save at step "
+    print(f"[ckpt-mesh] (b) minimind-16e ({MESH_LAYERS['minimind_moe_16e']} of 8 layers) through ep, bf16, "
+          f"{CKPT_MESH_AT} steps with an async save at step "
           f"{CKPT_MESH_AT}, then a fresh state resumed from it for step {CKPT_MESH_AT} against a straight "
           f"{CKPT_MESH_STEPS}-step run: losses {[round(v, 6) for v in c0['losses_a']]} + resumed "
           f"{[round(v, 6) for v in c0['losses_b']]}, straight {[round(v, 6) for v in c0['losses_c']]}; per rank "
@@ -3330,6 +3373,214 @@ def mesh_phase18b(torch, np, ranks, refs):
     if failed:
         raise AssertionError("phase 18(b): " + "; ".join(failed))
     return serve_launches, c0["launches"]
+
+
+# ----------------------------------------------------------------- phase 18(c)
+# serving on the 2x2 mesh for the cache layouts 18(b) does not take, inside
+# the same spawn: SSM/conv state over the model ranks (mamba2-130m at full
+# width; zamba2-7b at its published width, depth cut to whole shared-block
+# periods so that four ranks hold its dense weights whole beside each
+# other) and one long minimind-16e request, whose cache (1 slot) splits its
+# length over the data ranks, through the EP MoE layers
+LAYOUT_RUNS = (  # (label, arch, layers (None: published), slots, chunk, max_seq_len, strategy, fp32 control)
+    ("mamba2-130m", "mamba2_130m", None, 4, 32, 128, None, True),
+    ("zamba2-7b", "zamba2_7b", 12, 4, 32, 128, None, True),
+    ("minimind-16e topk", "minimind_moe_16e", None, 1, 128, 1024, "topk", True),
+    ("minimind-16e bip", "minimind_moe_16e", None, 1, 128, 1024, "bip", False),
+)
+LAYOUT_SSM_PROMPTS = (6, 8, 64)  # mamba2 and zamba2: six prompts of 8-64 tokens
+LAYOUT_LONG_PROMPT = 512  # minimind: one request
+LAYOUT_SEED = 19
+# the bf16 runs are held to one device's own drift from params nudged by
+# one ulp of the compute dtype (bf16: x (1 +- 2^-7); a one-ulp fp32 nudge
+# of fp32 params seldom moves a bf16 operand at all): the first-token
+# logits' relative L2, and for MoE the loads' L1 and (bip) the largest q
+# gap over the run, each within MESH_NUDGE_FACTOR x the nudged run's plus
+# LAYOUT_FLOOR. The tokens that differ are printed, not gated: a near-tie
+# flips a greedy token under either perturbation, and one flip changes the
+# rest of a request (minimind topk bf16, NVIDIA H100 80GB HBM3, 700 W: the
+# mesh's first-token logits parted from one device's 3x less than the
+# nudged run's, 0.0185 against 0.0559, and each changed 5 of the 6
+# tokens); the fp32 controls hold the tokens exactly
+BF16_ULP = 2.0**-7
+LAYOUT_FLOOR = {"logits": 0.0, "l1": SERVE_MESH_L1, "q": MESH_NUDGE_FLOOR["q"]}
+# the layout each run's slot cache must take on the 2x2 mesh ({leaf: spec})
+LAYOUT_SPECS = {
+    "mamba2-130m": {"ssm": ("data", "model", None, None), "conv": ("data", None, "model")},
+    "zamba2-7b": {"ssm": ("data", "model", None, None), "conv": ("data", None, "model"),
+                  "sk": ("data", None, "model", None)},
+    "minimind-16e topk": {"k": (None, "data", "model", None), "pos": (None,)},
+    "minimind-16e bip": {"k": (None, "data", "model", None), "pos": (None,)},
+}
+
+
+def layout_cfg(configs, arch, layers, strategy, fp32=False):
+    """An 18(c) run's config: published widths, `layers` deep, MoE with
+    `strategy` (sync='global', capacity factor SERVE_MESH_CAPACITY_FACTOR,
+    no drop), the config's bf16 compute or fp32."""
+    import torch
+
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if strategy is not None:
+        cfg = dataclasses.replace(cfg, routing=dataclasses.replace(
+            cfg.routing, strategy=strategy, sync="global", capacity_factor=SERVE_MESH_CAPACITY_FACTOR))
+    return dataclasses.replace(cfg, compute_dtype=torch.float32) if fp32 else cfg
+
+
+def layout_prompts(np, slots, vocab):
+    """The seeded requests of an 18(c) run: one of LAYOUT_LONG_PROMPT
+    tokens on one slot, else LAYOUT_SSM_PROMPTS."""
+    rng = np.random.default_rng(LAYOUT_SEED)
+    if slots == 1:
+        return [rng.integers(0, vocab, (LAYOUT_LONG_PROMPT,))]
+    n, lo, hi = LAYOUT_SSM_PROMPTS
+    return [rng.integers(0, vocab, (int(k),)) for k in rng.integers(lo, hi + 1, n)]
+
+
+def layout_keys():
+    """(key, label, arch, layers, slots, chunk, max_seq_len, strategy, fp32)
+    of every 18(c) serving run."""
+    return [(f"{label}/{'fp32' if fp32 else 'bf16'}", label, arch, layers, slots, chunk, max_seq, strategy, fp32)
+            for label, arch, layers, slots, chunk, max_seq, strategy, control in LAYOUT_RUNS
+            for fp32 in ((False, True) if control else (False,))]
+
+
+def phase18c_rank(torch, np, dist, rank, mesh, dev):
+    """18(c) on one rank of phase 17(b)'s spawn: every layout_keys() run
+    through ContinuousBatchingEngine(mesh=) from Model.init(seed=0).
+    Returns ({key: run}, {label: seconds}); rank 0's runs keep the
+    first-token logits and the cache's layout."""
+    from repro_torch import configs
+    from repro_torch.kernels import moe_gemm
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    out, part_s = {}, {}
+    for key, label, arch, layers, slots, chunk, max_seq, strategy, fp32 in layout_keys():
+        t = time.perf_counter()
+        cfg = layout_cfg(configs, arch, layers, strategy, fp32)
+        model = Model(cfg, device=dev)
+        eng = ContinuousBatchingEngine(model, model.init(seed=0), n_slots=slots, chunk_size=chunk,
+                                       max_seq_len=max_seq, use_kernel=True, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_collectives(dist) as waits:
+            run = serve_mesh_run(torch, eng, layout_prompts(np, slots, cfg.vocab_size), SERVE_MESH_GEN, moe_gemm)
+        run["collective_ms"] = sum(v[1] for v in waits.values())
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        run["first"] = [v.tolist() for v in run["first"]] if rank == 0 else None
+        run["specs"] = {}
+        for layer in eng.model.slot_specs["layers"]:
+            for name, spec in layer.items():
+                run["specs"].setdefault(name, list(spec))
+        out[key] = run
+        del eng, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s[label] = part_s.get(label, 0.0) + time.perf_counter() - t
+    return out, part_s
+
+
+def layout_references(torch, np, configs, mods, dev="cuda"):
+    """One device's runs that 18(c) is held against, on the same params
+    and requests: each layout_keys() run, and each bf16 run again from
+    params nudged by one bf16 ulp (BF16_ULP)."""
+    Model, ContinuousBatchingEngine, moe_gemm = mods
+    refs = {}
+    for key, _, arch, layers, slots, chunk, max_seq, strategy, fp32 in layout_keys():
+        model = Model(layout_cfg(configs, arch, layers, strategy, fp32), device=dev)
+        prompts = layout_prompts(np, slots, model.cfg.vocab_size)
+        runs = {}
+        for nudged in ((False,) if fp32 else (False, True)):
+            params = model.init(seed=0)
+            if nudged:
+                nudge_params(torch, params, dev, BF16_ULP)
+            eng = ContinuousBatchingEngine(model, params, n_slots=slots, chunk_size=chunk, max_seq_len=max_seq,
+                                           use_kernel=True)
+            runs[nudged] = serve_mesh_run(torch, eng, prompts, SERVE_MESH_GEN, moe_gemm)
+            del eng, params
+        refs[key] = dict(runs[False], nudged=runs.get(True))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def layout_drift(np, torch, run, ref, first):
+    """How far a serving run parts from `ref`: tokens that differ,
+    the largest first-token logits relative L2 (`first`: the run's), and
+    for MoE the loads' L1 and, under bip, the largest q gap over the
+    steps and layers."""
+    same = sum(a == b for x, y in zip(run["outputs"], ref["outputs"]) for a, b in zip(x, y))
+    out = {"tokens": sum(len(x) for x in ref["outputs"]) - same,
+           "logits": max(first_gaps([torch.as_tensor(v) for v in first], ref["first"]))}
+    if run["n_moe"]:
+        out["l1"] = int(np.abs(np.subtract(run["load"], ref["load"])).sum())
+    if run["n_moe"] and run["q"] is not None:
+        out["q"] = max(float(np.abs(np.subtract(a, b)).max()) for a, b in zip(run["q"], ref["q"]))
+    return out
+
+
+def mesh_phase18c(torch, np, ranks, refs):
+    """18(c)'s gates on the ranks' numbers (phase18c_rank) against one
+    device's runs `refs` (layout_references). Returns rank 0's K1/K2
+    launches over the minimind runs."""
+    world = len(ranks)
+    r0 = ranks[0]["p18c"]
+    failed, launches = [], [0, 0]
+    for key, label, *_, fp32 in layout_keys():
+        runs = [r["p18c"]["runs"][key] for r in ranks]
+        run, ref = runs[0], refs[key]
+        specs = {k: tuple(v) for k, v in run["specs"].items()}
+        st = sorted(run["step_s"][1:])
+        drift = layout_drift(np, torch, run, ref, run["first"])
+        line = (f"[serve-mesh] (c) {key}: {world} ranks sharing the card, mesh 2x2 over gloo, cache layout "
+                f"{specs}; every rank the same tokens {all(x['outputs'] == run['outputs'] for x in runs)}; steps "
+                f"{run['steps']} / {ref['steps']} on one device; step p50 {1e3 * st[len(st) // 2]:.1f} ms (rank 0), "
+                f"host time inside the collective calls {run['collective_ms']:.1f} ms over the run, peak memory "
+                f"per rank {[round(x['peak_gb'], 2) for x in runs]} GB; K1/K2 launches per rank "
+                f"{[x['launches'] for x in runs]}; against one device: {drift}")
+        if not all(x["outputs"] == run["outputs"] for x in runs):
+            failed.append(f"{key}: the ranks sampled different tokens")
+        want = LAYOUT_SPECS[label]
+        if any(specs.get(k) != v for k, v in want.items()):
+            failed.append(f"{key}: the cache took the layout {specs}, not {want}")
+        if run["steps"] != ref["steps"]:
+            failed.append(f"{key}: {run['steps']} steps against one device's {ref['steps']}")
+        for r, x in enumerate(runs):
+            if x["launches"] != [x["n_moe"] * x["steps"]] * 2:
+                failed.append(f"{key} rank {r}: K1/K2 launches {x['launches']} in {x['steps']} steps")
+        if fp32:
+            line += f" (control: tokens and loads equal, first-token logits within {PACKED_FP32_TOL})"
+            if drift["tokens"] or drift.get("l1", 0) or drift["logits"] > PACKED_FP32_TOL:
+                failed.append(f"{key}: the fp32 control parts from one device: {drift}")
+        else:
+            nudge = layout_drift(np, torch, ref["nudged"], ref, ref["nudged"]["first"])
+            bound = {k: MESH_NUDGE_FACTOR * v + LAYOUT_FLOOR[k] for k, v in nudge.items() if k in LAYOUT_FLOOR}
+            line += f"; one device from params nudged by one bf16 ulp: {nudge}; bounds {bound}"
+            over = {k: v for k, v in drift.items() if k in bound and v > bound[k]}
+            if over:
+                failed.append(f"{key}: parts from one device beyond its own nudged drift: {over}")
+        print(line)
+        if run["n_moe"]:
+            launches = [a + b for a, b in zip(launches, run["launches"])]
+    print(f"[phase 18(c)] seconds per part (rank 0, inside the spawn): "
+          f"{ {k: round(v, 1) for k, v in r0['part_s'].items()} }")
+    if failed:
+        raise AssertionError("phase 18(c): " + "; ".join(failed))
+    return launches
+
+
+def layout_ffn_shape(cfg, moe):
+    """(E, C, D, F) of 18(c)'s minimind expert FFN on one rank (ep2ds): m /
+    n_model experts, the data ranks' capacity buffers of the rank's cut of
+    the (1 x chunk) grid gathered, f / n_data as stored."""
+    n_data, n_model = MESH_SHAPE
+    chunk = next(r[4] for r in LAYOUT_RUNS if r[6] is not None)
+    cap = moe.expert_capacity(chunk // n_data, cfg)
+    return (cfg.routing.n_experts // n_model, n_data * cap, cfg.d_model, cfg.moe_d_ff // n_data)
 
 
 def k3_pass_times(torch, bip_admm, gen, device_ms):
@@ -3548,10 +3799,11 @@ def main() -> int:
                    for arch in MESH_ARCHS for impl in MESH_IMPLS}
     serve_mesh_shape = serve_mesh_ffn_shape(  # phase 18(b)'s
         serve_mesh_cfg(configs, "topk", capacity_factor=SERVE_MESH_CAPACITY_FACTOR), moe)
+    long_mesh_shape = layout_ffn_shape(layout_cfg(configs, "minimind_moe_16e", None, "topk"), moe)  # 18(c)'s
     mesh_err = {shape: check_kernels(torch, moe_gemm, shape, "bfloat16", gen)
-                for shape in (*mesh_shapes.values(), serve_mesh_shape)}
+                for shape in (*mesh_shapes.values(), serve_mesh_shape, long_mesh_shape)}
     fwd_timings = time_forward(torch, moe_gemm, {TRAIN: 2, MICRO: 2, LLAMA4: 2, ARCTIC16: 2, LLAMA4_TRAIN: 2,
-                                                 serve_mesh_shape: 8,
+                                                 serve_mesh_shape: 8, long_mesh_shape: 8,
                                                  **{shape: 2 for shape in mesh_shapes.values()}}, gen)
     train_timings, micro_timings = fwd_timings[TRAIN], fwd_timings[MICRO]
     print_forward_times(train_timings, TRAIN)
@@ -3564,6 +3816,8 @@ def main() -> int:
         print_forward_times(fwd_timings[shape], shape)
     print("  phase 18(b)'s serving expert FFN on one rank of the 2x2 mesh (ep2ds):")
     print_forward_times(fwd_timings[serve_mesh_shape], serve_mesh_shape)
+    print("  phase 18(c)'s one-request serving expert FFN on one rank of the 2x2 mesh (ep2ds):")
+    print_forward_times(fwd_timings[long_mesh_shape], long_mesh_shape)
     torch.cuda.empty_cache()
     check_ffn_backward(torch, moe_gemm, kernel_ops, "bfloat16", gen)
     check_ffn_backward(torch, moe_gemm, kernel_ops, "bfloat16", gen, shape=MICRO)
@@ -3653,14 +3907,19 @@ def main() -> int:
             Model, ContinuousBatchingEngine, init_distributed, make_host_mesh, moe_gemm), tmp17)
         serve18_refs = mesh_serve_references(torch, np, configs, (Model, ContinuousBatchingEngine, moe_gemm))
         t18 = time.perf_counter() - t18
+        t18c = time.perf_counter()
+        layout_refs = layout_references(torch, np, configs, (Model, ContinuousBatchingEngine, moe_gemm))
+        t18c = time.perf_counter() - t18c
         # -- 17(b) and 18(b): one spawn of four ranks sharing the card
         mesh_b, k3_layer, _, mesh_ranks = mesh_shared_card(torch, np, configs, (
             Model, init_train_state, make_train_step, from_model_config, constant, make_batches), tmp17)
         serve18b, ckpt18 = mesh_phase18b(torch, np, mesh_ranks, serve18_refs)
+        serve18c = mesh_phase18c(torch, np, mesh_ranks, layout_refs)
     finally:
         shutil.rmtree(tmp17, ignore_errors=True)
     print(f"[mesh] phases 17 and 18 wall {time.perf_counter() - t17:.1f} s (18(a) and 18(b)'s one-device "
-          f"serving references {t18:.1f} s; 18(b)'s rank work is inside the spawn's wall)")
+          f"serving references {t18:.1f} s, 18(c)'s {t18c:.1f} s; 18(b) and 18(c)'s rank work is inside the "
+          f"spawn's wall)")
 
     record = []
     for name, line, use, times, shape, n_launches, max_err in (
@@ -3710,6 +3969,13 @@ def main() -> int:
          "C the two data ranks' capacity buffers of the 8 x 32 grid gathered, F = f / 2 as stored); launches: "
          "rank 0, the three serving runs", fwd_timings[serve_mesh_shape][name], serve_mesh_shape,
          serve18b[i], mesh_err[serve_mesh_shape][name])
+        for i, (name, line) in enumerate(((k1, 41), (k2, 94)))
+    ) + tuple(
+        (name, line, "forward, one rank's expert FFN of phase 18(c)'s one long minimind-16e request on the 2x2 "
+         "mesh (ep2ds: E = m / 2, C the two data ranks' capacity buffers of the 1 x 128 grid gathered, F = f / 2 "
+         "as stored; the cache splits its length over the data ranks); launches: rank 0, the topk and bip runs "
+         "and the topk fp32 control", fwd_timings[long_mesh_shape][name], long_mesh_shape, serve18c[i],
+         mesh_err[long_mesh_shape][name])
         for i, (name, line) in enumerate(((k1, 41), (k2, 94)))
     ):
         k_ms, p_ms, lib_ms, _ = times

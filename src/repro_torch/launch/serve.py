@@ -6,8 +6,10 @@ engine on the GPU. The grouped expert FFN runs in the CUDA kernels
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minimind-moe-16e \
         --requests 16 --n-slots 8 --chunk 32 [--ckpt /path/step_N.npz]
 
-On a mesh (--mesh DxM: the cache's slots over D data ranks, the KV heads
-and the experts over M model ranks), one process per rank:
+On a mesh (--mesh DxM: the cache's slots, or its length when the slots do
+not split, over D data ranks; the KV heads, or head_dim, or the SSM heads,
+or state N, and the experts over M model ranks; any family the one-device
+engine serves), one process per rank:
 
     python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch minimind-moe-16e --mesh 2x2 [--device cpu --reduced]

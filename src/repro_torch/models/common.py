@@ -6,9 +6,15 @@ Functions take the reference's parameter layouts (wq (d,h,hd), wo (h,hd,d),
 w_gate (d,f), ...) as plain dicts of tensors. Attention is plain torch, as
 the reference's is plain jnp: fully masked rows are zeroed after the
 softmax, which scaled_dot_product_attention would turn into NaN.
+
+The two cached attentions (`attention_chunk`, `_attention_chunk_packed`)
+also run on one rank's block of a cache on a device mesh (`KVBlock`): its
+columns of the cache length and its slice of head_dim, each reduced over
+the mesh axes it is split over (see `_attend_block`).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
@@ -17,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.router import gather_rows
+from repro_torch.distributed import collectives
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -124,6 +131,58 @@ def _attend(q, k, v, mask, softcap: float, compute_dtype) -> Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", w.to(compute_dtype), vq)
 
 
+@dataclasses.dataclass(frozen=True)
+class KVBlock:
+    """One rank's block of a layer's K/V cache on a device mesh, along the
+    two axes attention reduces over: cache columns col0 .. col0 + n_cols
+    of the whole length `cap` and head_dim entries hd0 .. hd0 + n_hd of
+    `head_dim`, each with the mesh axes it is split over (() when the rank
+    holds it whole). `chunk_keys`: whether this rank attends a ring
+    layer's in-chunk keys, which must count once over the length axes
+    (their first rank)."""
+
+    cap: int
+    col0: int
+    n_cols: int
+    head_dim: int
+    hd0: int
+    n_hd: int
+    len_axes: Tuple[str, ...] = ()
+    hd_axes: Tuple[str, ...] = ()
+    chunk_keys: bool = True
+
+    def cut_hd(self, *ts: Tensor):
+        return tuple(t[..., self.hd0:self.hd0 + self.n_hd] for t in ts)
+
+
+def _attend_block(q, k, v, mask, softcap: float, compute_dtype, block: Optional[KVBlock]) -> Tensor:
+    """`_attend` on a rank's block (inside collectives.axis_env): q, k, v
+    hold the block's head_dim slice and k, v its columns; returns the
+    output's head_dim slice. Scores of a split head_dim are psum'd whole
+    before the softmax. Over a split length the row max is pmax'd first,
+    so each rank's exponentials need no rescaling: one psum each of their
+    sums l and the exp-weighted values o (fp32), then o / l. A block whose
+    columns are all masked adds exact zeros; a row masked on every rank is
+    zero, as `_attn_weights` makes it."""
+    if block is None or not (block.len_axes or block.hd_axes):
+        return _attend(q, k, v, mask, softcap, compute_dtype)
+    groups = q.shape[2] // k.shape[2]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, torch.repeat_interleave(k, groups, dim=2)).float()
+    logits = collectives.psum(logits, block.hd_axes) / math.sqrt(block.head_dim)
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = torch.where(mask, logits, NEG_INF)
+    vq = torch.repeat_interleave(v, groups, dim=2)
+    if not block.len_axes:
+        w = torch.where(mask.any(dim=-1, keepdim=True), torch.softmax(logits, dim=-1), 0.0)
+        return torch.einsum("bhqk,bkhd->bqhd", w.to(compute_dtype), vq)
+    m = collectives.pmax(logits.amax(dim=-1, keepdim=True), block.len_axes)
+    p = torch.where(mask, torch.exp(logits - m), 0.0)
+    l = collectives.psum(p.sum(dim=-1), block.len_axes).transpose(1, 2)[..., None]  # (B, Q, H, 1)
+    o = collectives.psum(torch.einsum("bhqk,bkhd->bqhd", p.to(compute_dtype), vq).float(), block.len_axes)
+    return torch.where(l > 0, o / torch.clamp_min(l, 1e-30), 0.0).to(compute_dtype)
+
+
 def causal_window_mask(q_pos: Tensor, k_pos: Tensor, window: int) -> Tensor:
     """(..., Sq, Sk) bool. window=0 -> plain causal; else sliding window."""
     diff = q_pos[..., :, None] - k_pos[..., None, :]
@@ -211,6 +270,7 @@ def attention_chunk(
     layer_kind: str = "global",
     lengths: Optional[Tensor] = None,  # (B,) tokens valid per row (0..C)
     project: bool = True,
+    block: Optional[KVBlock] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Cached attention advancing each row by `lengths[i]` tokens at once.
 
@@ -225,6 +285,12 @@ def attention_chunk(
     (out, {'k', 'v' (the same tensors), 'pos' advanced by lengths});
     `project=False` returns the heads' outputs (B, C, H, hd) before the
     output projection instead of out.
+
+    `block` (on a mesh, inside collectives.axis_env): the cache holds the
+    rank's columns and head_dim slice. q and k are rotated whole and then
+    cut (RoPE pairs entries i and i + hd/2), a column is written only by
+    the rank holding it, and the result is the output's head_dim slice
+    (`project` must be False).
     """
     b, c, _ = x.shape
     dev = x.device
@@ -243,18 +309,10 @@ def attention_chunk(
     q_pos = pos0[:, None] + cols[None, :]  # (B, C)
     valid = cols[None, :] < lengths[:, None]  # (B, C)
 
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(cd))
-    k_new = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(cd))
-    v_new = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(cd))
-    if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.rms_norm_eps)
-        k_new = rmsnorm(params["k_norm"], k_new, cfg.rms_norm_eps)
-    q = apply_rope(q, q_pos, theta)
-    k_new = apply_rope(k_new, q_pos, theta)
-
+    q, k_new, v_new = _project_qkv(params, x, cfg, q_pos, theta, block)
     k_cache, v_cache = cache["k"], cache["v"]
-    cap = k_cache.shape[1]
-    idx = torch.arange(cap, device=dev)[None, :]  # (1, cap)
+    cap, col0 = (k_cache.shape[1], 0) if block is None else (block.cap, block.col0)
+    idx = col0 + torch.arange(k_cache.shape[1], device=dev)[None, :]  # (1, columns held)
     if window > 0:
         if c > cap:
             raise ValueError(f"chunk {c} must fit the ring buffer (window {cap})")
@@ -272,6 +330,7 @@ def attention_chunk(
             (q_pos[:, None, :] <= q_pos[..., None])
             & (q_pos[:, None, :] > q_pos[..., None] - window)
             & valid[:, None, :]
+            & (block is None or block.chunk_keys)
         )
         mask = torch.cat([ring_ok, chunk_ok], dim=-1) & valid[..., None]
         k_att = torch.cat([k_cache.to(cd), k_new], dim=1)
@@ -280,19 +339,35 @@ def attention_chunk(
     else:
         write_idx = q_pos
 
-    write = valid & (write_idx < cap)
+    write = valid & (write_idx >= col0) & (write_idx < col0 + k_cache.shape[1]) & (write_idx < cap)
     rows, wcols = torch.nonzero(write, as_tuple=True)
-    k_cache[rows, write_idx[rows, wcols]] = k_new[rows, wcols].to(k_cache.dtype)
-    v_cache[rows, write_idx[rows, wcols]] = v_new[rows, wcols].to(v_cache.dtype)
+    k_cache[rows, write_idx[rows, wcols] - col0] = k_new[rows, wcols].to(k_cache.dtype)
+    v_cache[rows, write_idx[rows, wcols] - col0] = v_new[rows, wcols].to(v_cache.dtype)
 
     if window == 0:
         mask = (idx[:, None, :] <= q_pos[..., None]) & valid[..., None]  # (B, C, cap)
         k_att, v_att = k_cache.to(cd), v_cache.to(cd)
     mask = mask[:, None]  # (B, 1, C, cap[+C])
 
-    y = _attend(q, k_att, v_att, mask, cfg.attn_logit_softcap, cd)
+    y = _attend_block(q, k_att, v_att, mask, cfg.attn_logit_softcap, cd, block)
     out = torch.einsum("bshk,hkd->bsd", y, params["wo"].to(cd)) if project else y
     return out, {"k": k_cache, "v": v_cache, "pos": pos0 + lengths}
+
+
+def _project_qkv(params: Params, x: Tensor, cfg: ModelConfig, q_pos: Tensor, theta: float,
+                 block: Optional[KVBlock] = None):
+    """q, k, v of a chunk's columns at positions q_pos: projected, normed
+    (qk_norm) and rotated over the whole head_dim, then cut to `block`'s
+    head_dim slice."""
+    cd = cfg.compute_dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(cd))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(cd))
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.rms_norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.rms_norm_eps)
+    q, k = apply_rope(q, q_pos, theta), apply_rope(k, q_pos, theta)
+    return (q, k, v) if block is None else block.cut_hd(q, k, v)
 
 
 def _packed_kept(segments: Tensor, write_slots: Tensor, n_rows: int) -> Tensor:
@@ -301,7 +376,8 @@ def _packed_kept(segments: Tensor, write_slots: Tensor, n_rows: int) -> Tensor:
 
 
 def packed_writes(
-    positions: Tensor, segments: Tensor, write_slots: Tensor, n_rows: int, cap: int, ring: bool
+    positions: Tensor, segments: Tensor, write_slots: Tensor, n_rows: int, cap: int, ring: bool,
+    block: Optional[KVBlock] = None,
 ) -> Tuple[Tuple[Tensor, Tensor], Tuple[Tensor, Tensor]]:
     """Where a packed chunk's K/V land in one kind of layer cache:
     ((grid rows, grid cols), (cache rows, cache positions)) of every column
@@ -309,13 +385,18 @@ def packed_writes(
     drops a position past its end (the reference's out-of-bounds scatter),
     a ring wraps it. The set is the same for every layer of a kind, so the
     model builds it once per step: one host sync (the nonzero), not one per
-    layer. Written once each, so index_put_ stays deterministic."""
+    layer. Written once each, so index_put_ stays deterministic. On a
+    mesh (`block`; `cap` is then the whole length) only the columns of the
+    rank's block are kept, numbered within it."""
     keep = _packed_kept(segments, write_slots, n_rows)
     if ring:
         dst_pos = torch.remainder(positions, cap)
     else:
         dst_pos = positions
         keep = keep & (positions < cap)
+    if block is not None:
+        keep = keep & (dst_pos >= block.col0) & (dst_pos < block.col0 + block.n_cols)
+        dst_pos = dst_pos - block.col0
     rows, cols = torch.nonzero(keep, as_tuple=True)
     return (rows, cols), (write_slots[rows, cols], dst_pos[rows, cols])
 
@@ -344,6 +425,7 @@ def _attention_chunk_packed(
     writes=None,  # packed_writes(...) for this cache, when the caller has it
     counts: Optional[Tensor] = None,  # packed_counts(...), likewise
     project: bool = True,
+    block: Optional[KVBlock] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Packed multi-request chunk (the reference's function of this name):
     rows and cache slots decouple, and every column carries (position,
@@ -363,13 +445,15 @@ def _attention_chunk_packed(
     attend it beside the in-chunk keys, as the dense path; the engine
     spreads only on all-global stacks. The cache tensors are written in
     place; 'pos' advances by `packed_counts`. `project=False` returns the
-    heads' outputs (B, C, H, hd) before the output projection.
+    heads' outputs (B, C, H, hd) before the output projection. `block` as
+    in `attention_chunk` (`writes` must then be the block's).
     """
     b, c, _ = x.shape
     dev = x.device
     cd = cfg.compute_dtype
     k_cache, v_cache = cache["k"], cache["v"]
-    n_rows, cap = k_cache.shape[0], k_cache.shape[1]
+    n_rows = k_cache.shape[0]
+    cap, col0 = (k_cache.shape[1], 0) if block is None else (block.cap, block.col0)
     theta = cfg.rope_theta
     window = 0
     if layer_kind == "local":
@@ -381,21 +465,13 @@ def _attention_chunk_packed(
     if cache_rows is None:
         cache_rows = torch.arange(b, device=dev)
     if writes is None:
-        writes = packed_writes(positions, segments, write_slots, n_rows, cap, ring=window > 0)
+        writes = packed_writes(positions, segments, write_slots, n_rows, cap, ring=window > 0, block=block)
     if counts is None:
         counts = packed_counts(segments, write_slots, n_rows)
     valid = segments >= 0
     q_pos = positions
 
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(cd))
-    k_new = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(cd))
-    v_new = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(cd))
-    if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.rms_norm_eps)
-        k_new = rmsnorm(params["k_norm"], k_new, cfg.rms_norm_eps)
-    q = apply_rope(q, q_pos, theta)
-    k_new = apply_rope(k_new, q_pos, theta)
-
+    q, k_new, v_new = _project_qkv(params, x, cfg, q_pos, theta, block)
     (src_rows, src_cols), (dst_rows, dst_pos) = writes
 
     def write():
@@ -405,7 +481,7 @@ def _attention_chunk_packed(
     resident = segments == 0
     same_seg = segments[:, None, :] == segments[:, :, None]  # (B, C, C)
     causal = q_pos[:, None, :] <= q_pos[..., None]  # key column <= query column
-    idx = torch.arange(cap, device=dev)[None, :]  # (1, cap)
+    idx = col0 + torch.arange(k_cache.shape[1], device=dev)[None, :]  # (1, columns held)
     pos0 = cache["pos"]
     if window > 0:
         prev = pos0[cache_rows] - 1  # latest position already in the read row's ring
@@ -416,7 +492,8 @@ def _attention_chunk_packed(
             & (k_pos[:, None, :] > q_pos[..., None] - window)
             & resident[..., None]
         )
-        chunk_ok = same_seg & causal & (q_pos[:, None, :] > q_pos[..., None] - window) & valid[:, None, :]
+        chunk_ok = (same_seg & causal & (q_pos[:, None, :] > q_pos[..., None] - window) & valid[:, None, :]
+                    & (block is None or block.chunk_keys))
         k_att = torch.cat([k_cache[cache_rows].to(cd), k_new], dim=1)  # gathered before the write
         v_att = torch.cat([v_cache[cache_rows].to(cd), v_new], dim=1)
         write()
@@ -424,12 +501,12 @@ def _attention_chunk_packed(
         write()
         cache_ok = (idx[:, None, :] <= q_pos[..., None]) & resident[..., None]
         fresh = segments >= 1
-        chunk_ok = same_seg & causal & valid[:, None, :] & fresh[..., None]
+        chunk_ok = same_seg & causal & valid[:, None, :] & fresh[..., None] & (block is None or block.chunk_keys)
         k_att = torch.cat([k_cache[cache_rows].to(cd), k_new], dim=1)  # gathered after the write
         v_att = torch.cat([v_cache[cache_rows].to(cd), v_new], dim=1)
     mask = (torch.cat([cache_ok, chunk_ok], dim=-1) & valid[..., None])[:, None]  # (B, 1, C, cap+C)
 
-    y = _attend(q, k_att, v_att, mask, cfg.attn_logit_softcap, cd)
+    y = _attend_block(q, k_att, v_att, mask, cfg.attn_logit_softcap, cd, block)
     out = torch.einsum("bshk,hkd->bsd", y, params["wo"].to(cd)) if project else y
     return out, {"k": k_cache, "v": v_cache, "pos": pos0 + counts}
 

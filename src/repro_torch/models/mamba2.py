@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
 from repro_torch.models.common import _randn
 
 Tensor = torch.Tensor
@@ -248,6 +249,7 @@ def mamba_chunk(
     cfg: ModelConfig,
     *,
     lengths: Optional[Tensor] = None,  # (B,) tokens valid per row (0..C)
+    block: Optional[Dict[str, tuple]] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Advance the recurrent state by `lengths[i]` tokens per row at once.
 
@@ -257,7 +259,20 @@ def mamba_chunk(
     is frozen through padded steps). The new conv cache gathers the last
     d_conv - 1 VALID inputs per row (lengths == 0 keeps the old cache).
     The cache tensors are overwritten in place; returns (out, the cache's
-    {'ssm', 'conv'})."""
+    {'ssm', 'conv'}).
+
+    `block` (on a mesh, inside collectives.axis_env): the cache is one
+    rank's block, {'rows', 'heads', 'state', 'conv'} each (first, count,
+    mesh axes) of the slots, the SSM heads, the state N and the conv
+    channels it holds, and 'psum' the axes that split rows, heads or N;
+    xres and lengths are the whole grid's. in_proj runs
+    on every row; the rank gathers its rows' conv state whole over the
+    channel axes (the channels [x | B | C] do not line up with heads), runs
+    the conv and the SSD on its rows, heads and N (the skip D·x on the
+    first rank of the N axes: y is linear in N), and one psum over the axes
+    that split rows, heads or N gives every rank the whole y (zeros where
+    it holds nothing) before the gated norm and out_proj. It writes its
+    own block of the new state."""
     dm = dims(cfg)
     cd = cfg.compute_dtype
     bsz, c, _ = xres.shape
@@ -268,21 +283,40 @@ def mamba_chunk(
 
     zxbcdt = torch.einsum("bsd,de->bse", xres, params["in_proj"].to(cd))
     z, xbc_new, dt = _split_proj(zxbcdt, dm)
+    conv_state = cache["conv"]
+    if block is not None:
+        r0, nr, _ = block["rows"]
+        rows = slice(r0, r0 + nr)
+        xbc_new, dt, lengths, valid = xbc_new[rows], dt[rows], lengths[rows], valid[rows]
+        conv_state = collectives.all_gather(conv_state, block["conv"][2], axis=2)
+    n_rows = xbc_new.shape[0]
 
     kw = dm["d_conv"]
     # (B, kw-1+C, conv_dim): entry (kw-1)+t is the input at chunk offset t
-    hist = torch.cat([cache["conv"], xbc_new.to(cache["conv"].dtype)], dim=1)
+    hist = torch.cat([conv_state, xbc_new.to(conv_state.dtype)], dim=1)
     w = params["conv_w"].to(cd)
     conv_out = sum(hist[:, i : i + c, :].to(cd) * w[i] for i in range(kw)) + params["conv_b"].to(cd)
     xbc = F.silu(conv_out)
     # the last kw-1 valid inputs: hist indices lengths .. lengths+kw-2
     gather_idx = lengths[:, None] + torch.arange(kw - 1, device=dev)[None, :]
-    new_conv = hist[torch.arange(bsz, device=dev)[:, None], gather_idx]
+    new_conv = hist[torch.arange(n_rows, device=dev)[:, None], gather_idx]
 
     xs, bs, cs, dt = _ssd_inputs(xbc, dt, params, dm)
     dt = torch.where(valid[..., None], dt, 0.0)  # freeze the state through padding
-    y, st = ssd_chunked(xs, dt, params["A_log"], bs, cs, params["D"],
+    a_log, d_skip = params["A_log"], params["D"]
+    if block is not None:
+        (h0, nh, _), (n0, nn, _), (c0, ncc, _) = block["heads"], block["state"], block["conv"]
+        rep = dm["n_heads"] // dm["n_groups"]  # B, C per head (ssd_chunked's repeat), then cut
+        bs, cs = (torch.repeat_interleave(t, rep, dim=2)[:, :, h0:h0 + nh, n0:n0 + nn] for t in (bs, cs))
+        xs, dt = xs[:, :, h0:h0 + nh], dt[..., h0:h0 + nh]
+        a_log, d_skip = a_log[h0:h0 + nh], d_skip[h0:h0 + nh] * float(n0 == 0)
+        new_conv = new_conv[..., c0:c0 + ncc]
+    y, st = ssd_chunked(xs, dt, a_log, bs, cs, d_skip,
                         chunk=min(cfg.ssm.chunk_size, c), init_state=cache["ssm"])
+    if block is not None:
+        whole = y.new_zeros((bsz, c, dm["n_heads"], dm["head_dim"]))
+        whole[rows, :, h0:h0 + nh] = y
+        y = collectives.psum(whole, block["psum"])
     y = _gated_norm(y.reshape(bsz, c, dm["d_inner"]), z, params["norm_scale"], cfg.rms_norm_eps)
     out = torch.einsum("bse,ed->bsd", y, params["out_proj"].to(cd))
     cache["ssm"].copy_(st)

@@ -45,27 +45,33 @@ layers through moe.moe_ffn's expert-parallel paths. The loss is the mean
 over the global batch.
 
 Serving on a mesh (init_slot_cache, reset_slot, prefill_chunk; the
-engine's mesh=) holds the cache as distributed.cache_specs lays it out:
-each data rank its block of the slots, each model rank its block of the KV
-heads. The expert weights are cut as in training and every other weight is
-whole on every rank (`serving_param_specs`: nothing is gathered at a
-step). Every rank takes the step's tokens, positions and cache rows whole
-(the reference's replicated serving operands): norms, projections and the
-dense MLP run on all rows, and the MoE layers through moe.moe_ffn's
-expert-parallel paths with the serving token mask (the replicated-batch
-case, MeshCtx.tokens_sharded False). Attention is computed by the rank
-that holds the slot a row reads (`cache_rows`, or the row's own slot) and
-only for the query heads of its KV heads; it writes every column whose
-write slot it holds into its block. The (row, head) outputs it does not
-compute are zeros, so one psum over every mesh axis gives each rank the
-whole output exactly (each entry has one nonzero addend), and the output
-projection follows on all rows. Attention-only stacks whose slots divide
-over the data ranks and KV heads over the model ranks are served;
-SSM/conv caches and a cache split along its length are not
-(init_slot_cache raises).
+engine's mesh=) holds the slot cache as distributed.cache_specs lays it
+out: the slots over the data ranks when they divide, else the cache length
+(one long request) when it divides, else replicated; KV heads over the
+model ranks when they divide, else head_dim, else replicated; the SSM
+state's heads, else its state N, and the conv state's channels over the
+model ranks where they divide. `_layer_block` reads a rank's block of every
+layer from those specs: per cache axis its (first, count) and the mesh
+axes it is split over. The expert weights are cut as in training and every
+other weight is whole on every rank (`serving_param_specs`: nothing is
+gathered at a step). Every rank takes the step's tokens, positions and
+cache rows whole (the reference's replicated serving operands): norms,
+projections and the dense MLP run on all rows, and the MoE layers through
+moe.moe_ffn's expert-parallel paths with the serving token mask (the
+replicated-batch case, MeshCtx.tokens_sharded False). Attention runs on
+the rows that read the rank's slots, the query heads of its KV heads, its
+cache columns and its head_dim slice (common.KVBlock): scores of a split
+head_dim are psum'd before the softmax, the columns of a split length are
+combined by their row max and sums, and a column is written only by the
+rank that holds it. The mamba layers run their SSD on the rank's rows and
+SSM heads or N (mamba2.mamba_chunk). What a rank does not compute is zero,
+so one psum over the mesh axes that split rows, heads, head_dim or N gives
+every rank the whole output, and the output projection follows on all
+rows. A replicated axis is reduced over by nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -329,17 +335,19 @@ class Model:
         """Slot-pool cache for the continuous-batching engine: one cache row
         per batch slot, recycled across requests via `reset_slot`. Token
         families only: encdec needs per-request encoder K/V (ValueError).
-        On a mesh: this rank's block (distributed.cache_specs); what mesh
-        serving does not cover raises (`_check_mesh_serving`)."""
+        On a mesh: this rank's block (distributed.cache_specs, kept on
+        `slot_specs`), whose place `_layer_block` reads once here for the
+        steps that serve it."""
         if self.cfg.n_enc_layers:
             raise ValueError("slot cache: encdec is not supported (its cross K/V are per "
                              "request); serve it through serving.greedy_generate")
+        cache = self._build_cache(params, n_slots, max_seq_len, None)
         mesh = self.mesh_ctx.mesh
         if mesh is not None:
-            self._check_mesh_serving(n_slots)
-        cache = self._build_cache(params, n_slots, max_seq_len, None)
-        if mesh is not None:
-            cache = sharding.shard_tree(cache, sharding.cache_specs(cache, self.cfg, mesh, n_slots), mesh)
+            self.slot_specs = sharding.cache_specs(cache, self.cfg, mesh, n_slots)
+            self._slot_blocks = [self._layer_block(c, sp)
+                                 for c, sp in zip(cache["layers"], self.slot_specs["layers"])]
+            cache = sharding.shard_tree(cache, self.slot_specs, mesh)
         return cache
 
     def _build_cache(self, params: Params, bsz: int, seq_len: int, enc_out) -> Params:
@@ -363,12 +371,13 @@ class Model:
     def reset_slot(self, cache: Params, slot: int) -> Params:
         """Zero one slot's row of every cache leaf (K/V, positions, SSM and
         conv state, the shared block's K/V), in place. The slot is axis 0 of
-        each per-layer leaf; on a mesh only the rank that holds the slot
-        has a row to zero."""
+        each per-layer leaf; on a mesh every rank whose block holds the
+        slot's row zeroes it (one data rank when the slots split, every
+        rank when they do not)."""
         if self.mesh_ctx.mesh is not None:
-            blk = self._cache_block(cache)
-            slot -= blk["lo"]
-            if not 0 <= slot < blk["n_rows"]:
+            lo, n, _ = self._slot_blocks[0]["rows"]
+            slot -= lo
+            if not 0 <= slot < n:
                 return cache
         for layer in cache["layers"]:
             for leaf in layer.values():
@@ -377,85 +386,102 @@ class Model:
 
     # ------------------------------------------------ serving on a mesh
 
-    def _check_mesh_serving(self, n_slots: int) -> None:
-        """Refuse what serving on this model's mesh does not cover: stacks
-        with SSM/conv state (NotImplementedError), slots that do not split
-        over the data ranks (cache_specs would split the cache's length)
-        and KV heads that do not split over the model ranks (ValueError)."""
-        cfg, mc = self.cfg, self.mesh_ctx
-        kinds = sorted({k for k, _ in cfg.layer_kinds() if k not in ("global", "local")})
-        if kinds:
-            raise NotImplementedError(
-                f"serving on a mesh: {cfg.name} has {kinds} layers, whose SSM/conv slot state has no "
-                "mesh layout in the port yet (ROADMAP.md queue 1, item 7, 'SSM/conv caches on a mesh'); "
-                "serve it on one device")
-        shape = collectives.mesh_shape(mc.mesh)
-        n_data = math.prod(shape[a] for a in mc.data_axes)
-        if n_slots % n_data:
-            raise ValueError(
-                f"serving on a mesh: {n_slots} slots do not split over {n_data} data ranks (the cache "
-                "would split along its length, which the port does not serve: ROADMAP.md queue 1, "
-                "item 7, 'length-split caches'); use a multiple of the data size")
-        if cfg.n_kv_heads % shape[mc.model_axis]:
-            raise ValueError(
-                f"serving on a mesh: {cfg.n_kv_heads} KV heads do not split over {shape[mc.model_axis]} "
-                "model ranks (the cache would split head_dim; ROADMAP.md queue 1, item 7)")
+    def _dim_block(self, entry, whole: int) -> Tuple[int, int, Tuple[str, ...]]:
+        """(first, count, mesh axes) of this rank's block of one cache
+        dimension of size `whole` laid out by spec `entry`; (0, whole, ())
+        when it is not split."""
+        mesh = self.mesh_ctx.mesh
+        axes = collectives.spec_axes(entry)
+        if not axes:
+            return 0, whole, ()
+        n = whole // collectives.axis_size(axes, mesh)
+        return collectives.axis_index(axes, mesh) * n, n, axes
 
-    def _cache_block(self, cache: Params) -> Dict[str, Any]:
-        """Where this rank's cache block sits: its first slot and slot count,
-        and its KV heads and their query heads as (first, count)."""
-        cfg, mc = self.cfg, self.mesh_ctx
-        k = cache["layers"][0]["k"]
-        n_rows, n_kv = k.shape[0], k.shape[2]
-        kv0 = collectives.axis_index(mc.model_axis, mc.mesh) * n_kv
-        group = cfg.n_heads // cfg.n_kv_heads
-        return {"lo": collectives.axis_index(mc.data_axes, mc.mesh) * n_rows, "n_rows": n_rows,
-                "kv": (kv0, n_kv), "q": (kv0 * group, n_kv * group)}
+    def _mesh_axes(self, axes) -> Tuple[str, ...]:
+        """`axes` without repeats, in the mesh's order (a psum's group)."""
+        return tuple(a for a in collectives.mesh_shape(self.mesh_ctx.mesh) if a in axes)
 
-    def _local_packed(self, cache, blk, positions, segments, write_slots, cache_rows):
+    def _kv_block(self, k: Tensor, spec, rows) -> Dict[str, Any]:
+        """A (B, C, KV, hd) K/V leaf's block: its KV heads and their query
+        heads as (first, count), its columns and head_dim slice
+        (common.KVBlock) and the axes its outputs are psum'd over."""
+        kv0, n_kv, kv_axes = self._dim_block(spec[2], k.shape[2])
+        c0, n_c, len_axes = self._dim_block(spec[1], k.shape[1])
+        hd0, n_hd, hd_axes = self._dim_block(spec[3], k.shape[3])
+        group = self.cfg.n_heads // self.cfg.n_kv_heads
+        return {"kv": (kv0, n_kv), "q": (kv0 * group, n_kv * group),
+                "block": common.KVBlock(cap=k.shape[1], col0=c0, n_cols=n_c, head_dim=k.shape[3], hd0=hd0,
+                                        n_hd=n_hd, len_axes=len_axes, hd_axes=hd_axes, chunk_keys=c0 == 0),
+                "psum": self._mesh_axes(rows[2] + kv_axes + hd_axes)}
+
+    def _layer_block(self, c: Params, spec: Params) -> Dict[str, Any]:
+        """This rank's block of one layer's whole cache `c` under `spec`:
+        'rows' (its slots), 'attn' / 'shared' (its K/V, `_kv_block`),
+        'mamba' (its rows, SSM heads, state N and conv channels as
+        mamba2.mamba_chunk takes them)."""
+        rows = self._dim_block(next(iter(spec.values()))[0], next(iter(c.values())).shape[0])
+        blk = {"rows": rows}
+        if "k" in c:
+            blk["attn"] = self._kv_block(c["k"], spec["k"], rows)
+        if "sk" in c:
+            blk["shared"] = self._kv_block(c["sk"], spec["sk"], rows)
+        if "ssm" in c:
+            heads = self._dim_block(spec["ssm"][1], c["ssm"].shape[1])
+            state = self._dim_block(spec["ssm"][2], c["ssm"].shape[2])
+            blk["mamba"] = {"rows": rows, "heads": heads, "state": state,
+                            "conv": self._dim_block(spec["conv"][2], c["conv"].shape[2]),
+                            "psum": self._mesh_axes(rows[2] + heads[2] + state[2])}
+        return blk
+
+    def _local_packed(self, cache, rows_blk, positions, segments, write_slots, cache_rows):
         """The packed operands of the rows this rank's attention touches:
         the rows that read a slot of its block (`own`) and the rows with a
         column writing into one, with slots renumbered into the block
-        (others -1: not written here)."""
-        lo, n = blk["lo"], blk["n_rows"]
+        (others -1: not written here) and writes kept to its columns."""
+        lo, n, _ = rows_blk
         if cache_rows is None:
             cache_rows = torch.arange(segments.shape[0], device=segments.device)
         own = (cache_rows >= lo) & (cache_rows < lo + n)
         here = (write_slots >= lo) & (write_slots < lo + n)
         rows = torch.nonzero(own | here.any(dim=1), as_tuple=True)[0]
+        kv_blocks = {}
+        for (mixer, _), blk in zip(self.cfg.layer_kinds(), self._slot_blocks):
+            kv_blocks.setdefault(mixer, blk["attn"]["block"])
         ops = self._packed_operands(cache, positions[rows], segments[rows],
                                     torch.where(here, write_slots - lo, -1)[rows],
-                                    torch.where(own, cache_rows - lo, 0)[rows])
+                                    torch.where(own, cache_rows - lo, 0)[rows], kv_blocks)
         ops.update(rows=rows, own=own[rows])
         return ops
 
-    def _attention_on_mesh(self, p, xn, kv, layer_kind, lengths, blk):
-        """Chunk attention of the rows and heads this rank holds (see the
-        module doc), psum'd whole, then the output projection."""
+    def _attention_on_mesh(self, p, xn, kv, layer_kind, lengths, rows_blk, ablk, loc):
+        """Chunk attention of this rank's block (see the module doc):
+        `rows_blk` its slots, `ablk` its heads and KVBlock, `loc` the
+        step's local packed operands or None; psum'd whole over the axes
+        that split something, then the output projection."""
         cfg, mc = self.cfg, self.mesh_ctx
         cd = cfg.compute_dtype
         b, c, _ = xn.shape
-        (kv0, n_kv), (q0, n_q) = blk["kv"], blk["q"]
+        (kv0, n_kv), (q0, n_q), kvb = ablk["kv"], ablk["q"], ablk["block"]
         heads = dict(p, wq=p["wq"][:, q0:q0 + n_q], wk=p["wk"][:, kv0:kv0 + n_kv],
                      wv=p["wv"][:, kv0:kv0 + n_kv])
-        loc = blk["packed"]
-        if loc is None:
-            lo, n = blk["lo"], blk["n_rows"]
-            rows = slice(lo, lo + n)
-            y, new_kv = common.attention_chunk(heads, xn[rows], kv, cfg, layer_kind=layer_kind,
-                                               lengths=None if lengths is None else lengths[rows],
-                                               project=False)
-        else:
-            rows = loc["rows"]
-            ops = {k: v for k, v in loc.items() if k not in ("rows", "own")}
-            y, new_kv = common._attention_chunk_packed(
-                heads, xn[rows], kv, cfg, layer_kind=layer_kind, project=False,
-                **dict(ops, writes=ops["writes"][layer_kind]))
-            y = torch.where(loc["own"][:, None, None, None], y, torch.zeros((), dtype=y.dtype, device=y.device))
-        whole = y.new_zeros((b, c, cfg.n_heads, y.shape[-1]))
-        whole[rows, :, q0:q0 + n_q] = y
         with collectives.axis_env(mc.mesh):
-            whole = collectives.psum(whole, tuple(mc.data_axes) + (mc.model_axis,))
+            if loc is None:
+                lo, n, _ = rows_blk
+                rows = slice(lo, lo + n)
+                y, new_kv = common.attention_chunk(heads, xn[rows], kv, cfg, layer_kind=layer_kind,
+                                                   lengths=None if lengths is None else lengths[rows],
+                                                   project=False, block=kvb)
+            else:
+                rows = loc["rows"]
+                ops = {k: v for k, v in loc.items() if k not in ("rows", "own")}
+                y, new_kv = common._attention_chunk_packed(
+                    heads, xn[rows], kv, cfg, layer_kind=layer_kind, project=False, block=kvb,
+                    **dict(ops, writes=ops["writes"][layer_kind]))
+                y = torch.where(loc["own"][:, None, None, None], y,
+                                torch.zeros((), dtype=y.dtype, device=y.device))
+            whole = y.new_zeros((b, c, cfg.n_heads, cfg.resolved_head_dim))
+            whole[rows, :, q0:q0 + n_q, kvb.hd0:kvb.hd0 + kvb.n_hd] = y
+            whole = collectives.psum(whole, ablk["psum"])
         return torch.einsum("bshk,hkd->bsd", whole, p["wo"].to(cd)), new_kv
 
     def _apply_layer_chunk(self, p, x, cfg, mixer_kind, ffn_kind, cache, router_state, lengths,
@@ -463,9 +489,10 @@ class Model:
         """One layer over a (B, C) token chunk against its cache. `packed`
         (from `_packed_operands`) switches attention to the packed layout;
         column validity then comes from segments >= 0. `blk` (on a mesh,
-        from `_cache_block`, with this step's local packed operands) sends
-        attention through `_attention_on_mesh` and the MoE layer through
-        the expert-parallel paths. Returns (x, new_cache, new_router_state,
+        the layer's `_layer_block` with the step's local packed operands
+        under 'packed') sends attention through `_attention_on_mesh`, the
+        mamba mixer through its block and the MoE layer through the
+        expert-parallel paths. Returns (x, new_cache, new_router_state,
         load) with load the per-expert dispatch counts of this layer's real
         tokens, or None."""
         valid = None
@@ -478,7 +505,8 @@ class Model:
             xn = common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps)
             kv = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}
             if blk is not None:
-                h, attn_cache = self._attention_on_mesh(p["attn"], xn, kv, mixer_kind, lengths, blk)
+                h, attn_cache = self._attention_on_mesh(p["attn"], xn, kv, mixer_kind, lengths, blk["rows"],
+                                                        blk["attn"], blk["packed"])
             elif packed is None:
                 h, attn_cache = common.attention_chunk(
                     p["attn"], xn, kv, cfg, layer_kind=mixer_kind, lengths=lengths
@@ -493,10 +521,12 @@ class Model:
             if "ck" in cache:
                 x = x + self._cross_chunk(p, x, cache, valid)
         else:
-            h, mcache = mamba2.mamba_chunk(
-                p["mamba"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps),
-                {"ssm": cache["ssm"], "conv": cache["conv"]}, cfg, lengths=lengths,
-            )
+            mblk = None if blk is None else blk["mamba"]
+            with collectives.axis_env(self.mesh_ctx.mesh) if mblk else contextlib.nullcontext():
+                h, mcache = mamba2.mamba_chunk(
+                    p["mamba"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps),
+                    {"ssm": cache["ssm"], "conv": cache["conv"]}, cfg, lengths=lengths, block=mblk,
+                )
             new_cache.update(mcache)
             x = x + h
 
@@ -525,11 +555,13 @@ class Model:
             x = x + (y.reshape(b, s, d) + stack._residual_mlps(p, xin, cfg))
 
         if mixer_kind.endswith("+shared"):
-            h, sc = common.attention_chunk(
-                shared["attn"], common.rmsnorm(shared["pre_norm"], x, cfg.rms_norm_eps),
-                {"k": cache["sk"], "v": cache["sv"], "pos": cache["spos"]}, cfg,
-                layer_kind="global", lengths=lengths,
-            )
+            xn = common.rmsnorm(shared["pre_norm"], x, cfg.rms_norm_eps)
+            kv = {"k": cache["sk"], "v": cache["sv"], "pos": cache["spos"]}
+            if blk is None:
+                h, sc = common.attention_chunk(shared["attn"], xn, kv, cfg, layer_kind="global", lengths=lengths)
+            else:
+                h, sc = self._attention_on_mesh(shared["attn"], xn, kv, "global", lengths, blk["rows"],
+                                                blk["shared"], None)
             new_cache.update(sk=sc["k"], sv=sc["v"], spos=sc["pos"])
             x = x + h
             x = x + common.mlp(shared["mlp"], common.rmsnorm(shared["ffn_norm"], x, cfg.rms_norm_eps), cfg)
@@ -583,18 +615,20 @@ class Model:
         whole, and the logits, metrics and router states come back whole on
         every rank."""
         cfg = self.cfg
-        blk = None
-        if self.mesh_ctx.mesh is not None:
-            blk = self._cache_block(cache)
-            blk["packed"] = None
-            if segments is not None:
-                blk["packed"] = self._local_packed(cache, blk, positions, segments, write_slots, cache_rows)
-        packed = None
         if segments is not None:
             bad = {k for k, _ in cfg.layer_kinds() if k.replace("+shared", "") not in ("global", "local")}
             if bad:
                 raise ValueError(f"packed prefill: attention-only stacks required, got {sorted(bad)}")
-            if blk is None:
+        blocks = [None] * cfg.n_layers
+        if self.mesh_ctx.mesh is not None:
+            loc = None
+            if segments is not None:
+                loc = self._local_packed(cache, self._slot_blocks[0]["rows"], positions, segments, write_slots,
+                                         cache_rows)
+            blocks = [dict(b, packed=loc) for b in self._slot_blocks]
+        packed = None
+        if segments is not None:
+            if self.mesh_ctx.mesh is None:
                 packed = self._packed_operands(cache, positions, segments, write_slots, cache_rows)
             else:  # the whole grid's columns, for the MoE layers' token mask
                 packed = {"segments": segments}
@@ -604,8 +638,8 @@ class Model:
         load_total = torch.zeros((m_load,), dtype=torch.int64, device=tokens.device)
         vio_max = torch.zeros((), dtype=torch.float32, device=tokens.device)
         new_layers, new_states = [], []
-        for (mixer, ffn), p, c, st in zip(
-            cfg.layer_kinds(), params["stack"]["layers"], cache["layers"], router_states
+        for (mixer, ffn), p, c, st, blk in zip(
+            cfg.layer_kinds(), params["stack"]["layers"], cache["layers"], router_states, blocks
         ):
             x, nc, st, ld = self._apply_layer_chunk(p, x, cfg, mixer, ffn, c, st, lengths, shared, packed,
                                                     blk)
@@ -617,10 +651,11 @@ class Model:
         mets = {"moe_load": load_total, "max_vio": vio_max}
         return logits, {"layers": new_layers}, new_states, mets
 
-    def _packed_operands(self, cache, positions, segments, write_slots, cache_rows):
+    def _packed_operands(self, cache, positions, segments, write_slots, cache_rows, kv_blocks=None):
         """The packed operands of one step, with what every layer shares
         computed once: the write set of each layer kind (global caches and
-        rings differ in length) and each cache row's advance."""
+        rings differ in length; on a mesh, the columns of the kind's
+        KVBlock in `kv_blocks`) and each cache row's advance."""
         layers = cache["layers"]
         n_rows = layers[0]["k"].shape[0]
         if cache_rows is None:
@@ -628,8 +663,10 @@ class Model:
         writes = {}
         for (mixer, _), c in zip(self.cfg.layer_kinds(), layers):
             if mixer not in writes:
+                kvb = None if kv_blocks is None else kv_blocks[mixer]
                 writes[mixer] = common.packed_writes(
-                    positions, segments, write_slots, n_rows, c["k"].shape[1], ring=mixer == "local"
+                    positions, segments, write_slots, n_rows, c["k"].shape[1] if kvb is None else kvb.cap,
+                    ring=mixer == "local", block=kvb,
                 )
         return {"positions": positions, "segments": segments, "write_slots": write_slots,
                 "cache_rows": cache_rows, "writes": writes,

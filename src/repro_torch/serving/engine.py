@@ -22,7 +22,10 @@ weights and the slot cache are cut to the rank's blocks with the training
 layouts (distributed.param_specs, distributed.cache_specs), every other
 weight is held whole on every rank (Model.serving_param_specs), the router
 states stay replicated, and every step's operands are whole on every rank (see
-models.model for the attention and the MoE layers). Every rank then takes
+models.model for the attention, the mamba layers and the MoE layers). Every
+layout cache_specs gives the slot cache is served: slots, cache length or
+neither over the data ranks; KV heads, head_dim or neither, SSM heads or
+state N, conv channels over the model ranks. Every rank then takes
 the same host decisions: the planner is deterministic, greedy ids are
 computed from logits that are the same on every rank, and with
 temperature > 0 rank 0 samples and broadcasts the ids (one small
@@ -58,9 +61,8 @@ class ContinuousBatchingEngine:
     routing.use_kernel: True sends the expert FFN through the CUDA kernel
     pair (kernels/moe_gemm.py) without touching the config file. `mesh`
     serves on a device mesh (see the module doc); `params` are then the
-    whole params, cut here. Attention-only stacks whose slots divide over
-    the data ranks and KV heads over the model ranks (the slot cache
-    raises otherwise).
+    whole params, cut here. It serves what one device serves, with any
+    `n_slots`.
     """
 
     def __init__(

@@ -304,10 +304,28 @@ def serve_stream(engine_cls, model, params, prompts, gen, mesh=None, plans=False
     return [r.output for r in reqs], eng.expert_load.copy(), log
 
 
+def formerly_refused(configs):
+    """The two setups mesh serving used to refuse, each (name, config,
+    slots): a mamba stack (SSM/conv state) and 6 slots over 4 data ranks
+    (the cache then splits its length)."""
+    return (("mamba", configs.reduced_for_smoke("mamba2_130m"), 4), ("slots", serve_cfg(configs, "topk"), 6))
+
+
+def serve_small(engine_cls, model, params, n_slots, mesh=None):
+    """Two seeded prompts, 3 greedy tokens each, chunk 8, max_seq_len 32."""
+    eng = engine_cls(model, params, n_slots=n_slots, chunk_size=8, max_seq_len=32, mesh=mesh)
+    rng = np.random.default_rng(1)
+    reqs = [eng.submit(rng.integers(0, model.cfg.vocab_size, (n,)), 3, ignore_eos=True) for n in (5, 11)]
+    while eng.scheduler.has_work:
+        eng.step()
+    return [list(map(int, r.output)) for r in reqs], eng.expert_load.copy()
+
+
 def serve_checks(rank, world, workdir):
     """Everything test_torch_serve_mesh.py asks of a rank: the engine on the
     4x2 mesh from the reference's params (serve_params.pkl, converted) for
-    each strategy, the packed case with its plans, and the refusals."""
+    each strategy, the packed case with its plans, and the two setups mesh
+    serving used to refuse (`formerly_refused`, from Model.init(0))."""
     import pickle
 
     from repro_torch import configs
@@ -328,16 +346,138 @@ def serve_checks(rank, world, workdir):
     cfg = serve_cfg(configs, "topk")
     out["packed"] = serve_stream(ContinuousBatchingEngine, Model(cfg, device="cpu"),
                                  params_from_numpy(tree, cfg, "cpu"), serve_prompts(True), 4, mesh, plans=True)
-    refusals = {}
-    mamba = configs.reduced_for_smoke("mamba2_130m")
-    for name, model, n_slots in (("mamba", Model(mamba, device="cpu"), 4), ("slots", Model(cfg, device="cpu"), 6)):
-        try:
-            ContinuousBatchingEngine(model, model.init(0), n_slots=n_slots, chunk_size=8, max_seq_len=32,
-                                     mesh=mesh)
-            refusals[name] = None
-        except (NotImplementedError, ValueError) as e:
-            refusals[name] = (type(e).__name__, str(e))
-    out["refusals"] = refusals
+    out["refusals"] = {}
+    for name, c, n_slots in formerly_refused(configs):
+        model = Model(c, device="cpu")
+        out["refusals"][name] = serve_small(ContinuousBatchingEngine, model, model.init(0), n_slots, mesh)
+    return out
+
+
+# ------------------------------------------------- serving layouts on a mesh
+
+
+LAYOUT_MESH = (2, 4)
+# (name, arch, config overrides, slots, routing strategy or None, the
+# slot cache's layout on the 2x4 mesh: {leaf: spec} of the port's per-layer
+# leaves (distributed.cache_specs), each leaf name once)
+LAYOUT_CASES = (
+    ("mamba2_heads", "mamba2_130m", {}, 4, None,
+     {"ssm": ("data", "model", None, None), "conv": ("data", None, "model")}),
+    ("mamba2_state", "mamba2_130m", {"d_model": 96}, 4, None,  # 6 SSM heads over 4 model ranks: N splits
+     {"ssm": ("data", None, "model", None), "conv": ("data", None, "model")}),
+    ("zamba2", "zamba2_7b", {}, 4, None,
+     {"ssm": ("data", "model", None, None), "conv": ("data", None, "model"),
+      "sk": ("data", None, "model", None), "sv": ("data", None, "model", None), "spos": ("data",)}),
+    ("stablelm_length", "stablelm_1_6b", {}, 1, None,
+     {"k": (None, "data", "model", None), "v": (None, "data", "model", None), "pos": (None,)}),
+    ("gemma2_ring", "gemma2_27b", {"window_size": 16}, 1, None,  # 2 KV heads over 4: head_dim splits too
+     {"k": (None, "data", None, "model"), "v": (None, "data", None, "model"), "pos": (None,)}),
+    ("stablelm_head_dim", "stablelm_1_6b", {"n_heads": 6, "n_kv_heads": 3}, 4, None,
+     {"k": ("data", None, None, "model"), "v": ("data", None, None, "model"), "pos": ("data",)}),
+    ("stablelm_replicated", "stablelm_1_6b", {"n_heads": 6, "n_kv_heads": 3, "head_dim": 6}, 2, None,
+     {"k": ("data", None, None, None), "v": ("data", None, None, None), "pos": ("data",)}),
+    ("minimind_topk", "minimind_moe_16e", {}, 1, "topk",
+     {"k": (None, "data", "model", None), "v": (None, "data", "model", None), "pos": (None,)}),
+    ("minimind_bip", "minimind_moe_16e", {}, 1, "bip",
+     {"k": (None, "data", "model", None), "v": (None, "data", "model", None), "pos": (None,)}),
+)
+LAYOUT_GEN, LAYOUT_CHUNK, LAYOUT_MAX_SEQ = 5, 8, 64
+
+
+def layout_cfg(configs, case):
+    """A case's reduced config (vocab 128; MoE: sync='global', capacity
+    factor 4, its strategy) in either package's configs."""
+    _, arch, overrides, _, strategy, _ = case
+    cfg = configs.reduced_for_smoke(arch, vocab_size=128, **overrides)
+    if strategy is None:
+        return cfg
+    return dataclasses.replace(cfg, routing=dataclasses.replace(
+        cfg.routing, sync="global", strategy=strategy, capacity_factor=4.0))
+
+
+def layout_prompts():
+    """Three seeded prompts of 3-19 tokens."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 128, (int(rng.integers(3, 20)),)).tolist() for _ in range(3)]
+
+
+def layout_specs(specs):
+    """{leaf name: spec} of the port's cache spec tree, each name once."""
+    out = {}
+    for layer in specs["layers"]:
+        for name, spec in layer.items():
+            out.setdefault(name, tuple(spec))
+    return out
+
+
+def layout_params(workdir, name, timeout=600.0):
+    """A case's reference params tree (numpy), once the test process has
+    written `layout_params_<name>.pkl` into `workdir` (it writes them one
+    by one while the ranks and the reference's subprocess serve the cases
+    before); a `.error` file in its place raises."""
+    import pickle
+    import time
+    from pathlib import Path
+
+    path = Path(workdir) / f"layout_params_{name}.pkl"
+    t0 = time.monotonic()
+    while not path.exists():
+        err = path.with_suffix(".error")
+        if err.exists():
+            raise RuntimeError(f"the params of {name} were not made:\n{err.read_text()}")
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"no {path} after {timeout} s")
+        time.sleep(0.05)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def layout_stream(engine_cls, model, params, n_slots, mesh=None, logits=False):
+    """The case's loop (chunk 8, max_seq_len 64, LAYOUT_GEN greedy tokens
+    per prompt): (tokens, expert load, the logits each step sampled from,
+    per active slot, or None, the engine)."""
+    eng = engine_cls(model, params, n_slots=n_slots, chunk_size=LAYOUT_CHUNK, max_seq_len=LAYOUT_MAX_SEQ,
+                     mesh=mesh)
+    rows = []
+    if logits:
+        sample = eng._sample
+
+        def keep(last, mets):
+            rows.append(np.stack([_np(last[i]) for i, _ in eng.scheduler.active()]))
+            return sample(last, mets)
+
+        eng._sample = keep
+    reqs = []
+    for p in layout_prompts():
+        r = eng.submit(p, LAYOUT_GEN, ignore_eos=True)
+        while r is None:
+            eng.step()
+            r = eng.submit(p, LAYOUT_GEN, ignore_eos=True)
+        reqs.append(r)
+    while eng.scheduler.has_work:
+        eng.step()
+    return [list(map(int, r.output)) for r in reqs], np.asarray(eng.expert_load).copy(), rows if logits else None, eng
+
+
+def layout_checks(rank, world, workdir):
+    """Everything test_torch_serve_mesh_layouts.py asks of a rank: each
+    LAYOUT_CASES case through the engine on the 2x4 mesh from the
+    reference's params (`layout_params`, converted): tokens, loads, the
+    cache's layout, and on rank 0 the logits each step sampled from."""
+    from repro_torch import configs
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    mesh = make_host_mesh(*LAYOUT_MESH)
+    out = {}
+    for case in LAYOUT_CASES:
+        cfg = layout_cfg(configs, case)
+        params = params_from_numpy(layout_params(workdir, case[0]), cfg, "cpu")
+        tokens, load, logits, eng = layout_stream(ContinuousBatchingEngine, Model(cfg, device="cpu"), params,
+                                                  case[3], mesh, logits=rank == 0)
+        out[case[0]] = {"tokens": tokens, "load": load, "logits": logits, "specs": layout_specs(eng.model.slot_specs)}
     return out
 
 

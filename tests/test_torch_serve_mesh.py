@@ -29,7 +29,7 @@ jax = pytest.importorskip("jax")
 
 from _forced_devices import PRELUDE, REPO_ROOT  # noqa: E402
 from _torch_mesh_ranks import (  # noqa: E402
-    SERVE_STRATEGIES, serve_cfg, serve_checks, serve_prompts, serve_stream,
+    SERVE_STRATEGIES, formerly_refused, serve_cfg, serve_checks, serve_prompts, serve_small, serve_stream,
 )
 from _torch_mesh_util import alongside, run_ranks  # noqa: E402
 from repro import configs as jax_configs  # noqa: E402
@@ -138,14 +138,18 @@ def test_packed_step_spreads_onto_rows_of_other_data_ranks(serve_run):
 
 
 def test_mesh_serving_refusals(serve_run):
-    """What mesh serving does not cover raises, naming the ROADMAP item: a
-    stack with SSM/conv state (NotImplementedError) and slots that do not
-    split over the data ranks (ValueError with the sizes)."""
+    """The two setups mesh serving once refused now serve on the 4x2 mesh
+    like one device: a stack with SSM/conv state (reduced mamba2-130m, 4
+    slots) and 6 slots over 4 data ranks (topk minimind; the cache splits
+    its length): every rank the same tokens, and tokens and loads equal to
+    the one-device engine on the same params."""
     ranks, _, _ = serve_run
-    kind, msg = ranks[0]["refusals"]["mamba"]
-    assert kind == "NotImplementedError" and "queue 1, item 7" in msg
-    kind, msg = ranks[0]["refusals"]["slots"]
-    assert kind == "ValueError" and "6 slots do not split over 4 data ranks" in msg
+    for name, cfg, n_slots in formerly_refused(configs):
+        model = Model(cfg, device="cpu")
+        tokens, load = serve_small(ContinuousBatchingEngine, model, model.init(0), n_slots)
+        for r in ranks:
+            assert r["refusals"][name][0] == tokens, name
+            np.testing.assert_array_equal(r["refusals"][name][1], load)
 
 
 def test_serve_cli_on_mesh_under_torchrun(tmp_path):
