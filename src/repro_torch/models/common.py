@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.router import gather_rows
 from repro_torch.distributed import collectives
+from repro_torch.telemetry.trace import cast_span
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -55,6 +56,19 @@ def _randn(gen: torch.Generator, shape, scale: float, dtype) -> Tensor:
         blk = out[r0 : r0 + rows]
         blk.copy_(torch.randn(blk.shape, generator=gen, device=gen.device).mul_(scale))
     return out
+
+
+def cast_weights(dtype, *ws: Tensor) -> Tuple[Tensor, ...]:
+    """The weights of one use site in the compute dtype (`w.to(dtype)` each),
+    under the layer span 'model/weight_cast' while a profiler collects. A
+    site casts together the weights one block uses (attention's four, an
+    MLP's three), so a traced step records one span a block, not a weight."""
+    return cast_span("model/weight_cast", dtype, *ws)
+
+
+def cast_weight(w: Tensor, dtype) -> Tensor:
+    """One weight in the compute dtype at its use (`cast_weights`)."""
+    return cast_weights(dtype, w)[0]
 
 
 # ------------------------------------------------------------------ norms
@@ -226,9 +240,10 @@ def attention(
         if cfg.rope_local_theta:
             theta = cfg.rope_local_theta
 
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(cd))
+    wq, wk, wv, wo = cast_weights(cd, params["wq"], params["wk"], params["wv"], params["wo"])
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
+    k = torch.einsum("bsd,dhk->bshk", x, wk)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.rms_norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.rms_norm_eps)
@@ -258,7 +273,7 @@ def attention(
             mask = mask & (si[:, :, None] == segments[:, None, :])[:, None]
         ys.append(_attend(qi, k, v, mask, cfg.attn_logit_softcap, cd))
     y = torch.cat(ys, dim=1)[:, :s]
-    return torch.einsum("bshk,hkd->bsd", y, params["wo"].to(cd))
+    return torch.einsum("bshk,hkd->bsd", y, wo)
 
 
 def attention_chunk(
@@ -545,9 +560,10 @@ def _act(cfg: ModelConfig):
 
 def mlp(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     cd = cfg.compute_dtype
-    g = torch.einsum("...d,df->...f", x, params["w_gate"].to(cd))
-    u = torch.einsum("...d,df->...f", x, params["w_up"].to(cd))
-    return torch.einsum("...f,fd->...d", _act(cfg)(g) * u, params["w_down"].to(cd))
+    w_gate, w_up, w_down = cast_weights(cd, params["w_gate"], params["w_up"], params["w_down"])
+    g = torch.einsum("...d,df->...f", x, w_gate)
+    u = torch.einsum("...d,df->...f", x, w_up)
+    return torch.einsum("...f,fd->...d", _act(cfg)(g) * u, w_down)
 
 
 # ------------------------------------------------------------- embeddings
@@ -564,14 +580,14 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def embed(params: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    return gather_rows(params["tok"].to(cfg.compute_dtype), tokens)
+    return gather_rows(cast_weight(params["tok"], cfg.compute_dtype), tokens)
 
 
 def unembed(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     if cfg.tie_embeddings:
-        logits = torch.einsum("...d,vd->...v", x, params["tok"].to(cfg.compute_dtype))
+        logits = torch.einsum("...d,vd->...v", x, cast_weight(params["tok"], cfg.compute_dtype))
     else:
-        logits = torch.einsum("...d,dv->...v", x, params["unembed"].to(cfg.compute_dtype))
+        logits = torch.einsum("...d,dv->...v", x, cast_weight(params["unembed"], cfg.compute_dtype))
     logits = logits.float()
     if cfg.final_logit_softcap > 0:
         c = cfg.final_logit_softcap

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives
-from repro_torch.models.common import _randn
+from repro_torch.models.common import _randn, cast_weight, cast_weights
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -223,14 +223,14 @@ def mamba_block(params: Params, xres: Tensor, cfg: ModelConfig) -> Tensor:
     """Full-sequence mamba2 mixer. xres: (B, S, d) (already normed)."""
     dm = dims(cfg)
     cd = cfg.compute_dtype
-    zxbcdt = torch.einsum("bsd,de->bse", xres, params["in_proj"].to(cd))
+    zxbcdt = torch.einsum("bsd,de->bse", xres, cast_weight(params["in_proj"], cd))
     z, xbc, dt = _split_proj(zxbcdt, dm)
-    xbc = F.silu(_causal_conv(xbc, params["conv_w"].to(cd), params["conv_b"].to(cd)))
+    xbc = F.silu(_causal_conv(xbc, *cast_weights(cd, params["conv_w"], params["conv_b"])))
     xs, bs, cs, dt = _ssd_inputs(xbc, dt, params, dm)
     y, _ = ssd_chunked(xs, dt, params["A_log"], bs, cs, params["D"], cfg.ssm.chunk_size)
     bsz, s = xres.shape[:2]
     y = _gated_norm(y.reshape(bsz, s, dm["d_inner"]), z, params["norm_scale"], cfg.rms_norm_eps)
-    return torch.einsum("bse,ed->bsd", y, params["out_proj"].to(cd))
+    return torch.einsum("bse,ed->bsd", y, cast_weight(params["out_proj"], cd))
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device) -> Dict[str, Tensor]:

@@ -84,7 +84,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives, sharding
 from repro_torch.models import common, mamba2, moe, stack
-from repro_torch.models.stack import MeshCtx
+from repro_torch.models.stack import MeshCtx, leaves_of
+from repro_torch.telemetry.trace import layer_span
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -155,6 +156,9 @@ def abstract_params(cfg: ModelConfig) -> Params:
 
 
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+# the leaves the layer spans 'model/embed' and 'model/head' read
+_EMBED_KEYS = ("embed", "frontend_proj")
+_HEAD_KEYS = ("final_norm", "embed")
 
 
 def _is_expert_leaf(keys: Tuple[str, ...]) -> bool:
@@ -243,7 +247,8 @@ class Model:
         if cfg.family != "vlm":
             return x, 0
         cd = cfg.compute_dtype
-        proj = torch.einsum("bsf,fd->bsd", batch["patches"].to(cd), params["frontend_proj"].to(cd))
+        proj = torch.einsum("bsf,fd->bsd", batch["patches"].to(cd),
+                            common.cast_weight(params["frontend_proj"], cd))
         return torch.cat([proj, x], dim=1), cfg.frontend_tokens
 
     def _encode(self, params: Params, batch: Dict[str, Tensor]) -> Optional[Tensor]:
@@ -271,11 +276,13 @@ class Model:
         recurrence would carry state across a document boundary.
 
         On a mesh, `params` and `batch` are this rank's (see the module
-        doc)."""
+        doc). The embedding and the head run as the layer spans
+        'model/embed' and 'model/head' (telemetry/trace.py)."""
         cfg = self.cfg
         if self.mesh_ctx.mesh is not None:
             params = self._params_at_use(params)
-        x, n_prefix = self._embed_inputs(params, batch)
+        x, n_prefix = layer_span("model/embed", self._embed_inputs, leaves_of(params, _EMBED_KEYS),
+                                 batch)
         enc_out = self._encode(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         segments = batch.get("segments") if n_prefix == 0 else None
@@ -289,22 +296,19 @@ class Model:
             params["stack"], x, router_states, cfg, positions=positions,
             segments=segments, enc_out=enc_out, mesh_ctx=self.mesh_ctx,
         )
-        x = common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
-        if n_prefix:
-            x = x[:, n_prefix:]
-        logits = common.unembed(params["embed"], x, cfg)
+        logits = layer_span("model/head", self._head, leaves_of(params, _HEAD_KEYS), x, n_prefix)
         return logits, new_states, aux, mets
 
-    def loss_fn(self, params: Params, batch: Dict[str, Tensor], router_states: list):
-        """Masked next-token cross entropy (labels < 0 are ignored) plus the
-        balancers' aux loss. Returns (loss, (new router states, metrics))
-        with metrics gaining 'ce_loss', 'aux_loss' and 'perplexity'. On a
-        mesh with the batch split over data, each rank adds its rows' sum
-        over the global count of valid labels, and the psum of those is the
-        loss every rank returns (its cotangent reaches each rank's rows
-        unchanged)."""
-        logits, new_states, aux, mets = self.forward(params, batch, router_states)
-        labels = batch["labels"]
+    def _head(self, params: Params, x: Tensor, n_prefix: int) -> Tensor:
+        """The final norm and the unembedding, past the vlm prefix."""
+        x = common.rmsnorm(params["final_norm"], x, self.cfg.rms_norm_eps)
+        if n_prefix:
+            x = x[:, n_prefix:]
+        return common.unembed(params["embed"], x, self.cfg)
+
+    def _loss(self, logits: Tensor, labels: Tensor, aux: Tensor):
+        """(loss, ce, perplexity) of the logits against the labels, the aux
+        loss added."""
         valid = labels >= 0
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, torch.clamp_min(labels, 0)[..., None])[..., 0]
@@ -316,9 +320,20 @@ class Model:
                 ce = collectives.psum(torch.sum(nll) / torch.clamp_min(n_valid, 1).float(), mc.data_axes)
         else:
             ce = torch.sum(nll) / torch.clamp_min(valid.sum(), 1).float()
-        loss = ce + aux
+        return ce + aux, ce, torch.exp(ce)
+
+    def loss_fn(self, params: Params, batch: Dict[str, Tensor], router_states: list):
+        """Masked next-token cross entropy (labels < 0 are ignored) plus the
+        balancers' aux loss. Returns (loss, (new router states, metrics))
+        with metrics gaining 'ce_loss', 'aux_loss' and 'perplexity'. On a
+        mesh with the batch split over data, each rank adds its rows' sum
+        over the global count of valid labels, and the psum of those is the
+        loss every rank returns (its cotangent reaches each rank's rows
+        unchanged)."""
+        logits, new_states, aux, mets = self.forward(params, batch, router_states)
+        loss, ce, ppl = layer_span("model/loss", self._loss, logits, batch["labels"], aux)
         mets = dict(mets)
-        mets.update(ce_loss=ce, aux_loss=aux, perplexity=torch.exp(ce))
+        mets.update(ce_loss=ce, aux_loss=aux, perplexity=ppl)
         return loss, (new_states, mets)
 
     # ---------------------------------------------------------- serving

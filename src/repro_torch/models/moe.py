@@ -31,7 +31,7 @@ from repro_torch.core import get_balancer, make_dispatch_plan, route
 from repro_torch.core.types import RouterConfig
 from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.common import _act, _randn
+from repro_torch.models.common import _act, _randn, cast_weights
 from repro_torch.telemetry.trace import named_span
 
 Tensor = torch.Tensor
@@ -81,12 +81,11 @@ def _expert_ffn(w_gate, w_up, w_down, xb, cfg: ModelConfig) -> Tensor:
     dt = cfg.compute_dtype
     r = cfg.routing
     if (r.use_kernel if r.ffn_kernel is None else r.ffn_kernel) and cfg.act == "silu":
-        return kernel_ops.expert_ffn(
-            xb.to(dt), w_gate.to(dt), w_up.to(dt), w_down.to(dt)
-        )
-    g = torch.einsum("ecd,edf->ecf", xb, w_gate.to(dt))
-    u = torch.einsum("ecd,edf->ecf", xb, w_up.to(dt))
-    return torch.einsum("ecf,efd->ecd", _act(cfg)(g) * u, w_down.to(dt))
+        return kernel_ops.expert_ffn(xb.to(dt), *cast_weights(dt, w_gate, w_up, w_down))
+    w_gate, w_up, w_down = cast_weights(dt, w_gate, w_up, w_down)
+    g = torch.einsum("ecd,edf->ecf", xb, w_gate)
+    u = torch.einsum("ecd,edf->ecf", xb, w_up)
+    return torch.einsum("ecf,efd->ecd", _act(cfg)(g) * u, w_down)
 
 
 def moe_ffn_local(

@@ -18,6 +18,9 @@ Block structure (pre-norm residual):
 `apply_layer` / `apply_stack` run the training forward over whole
 sequences; MoE layers thread their router state and return their metrics,
 which `apply_stack` stacks into '<key>_per_layer' columns in layer order.
+A layer's mixer and FFN run as the layer spans 'model/attention' (or
+'model/mamba') and 'model/ffn' (telemetry/trace.py), each ending with its
+residual add.
 
 `cfg.remat == "block"` recomputes activations in the backward pass, as the
 reference's `jax.checkpoint` of each scanned period: every whole period of
@@ -38,6 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import init_router_state
 from repro_torch.distributed.collectives import MeshCtx
 from repro_torch.models import common, mamba2, moe
+from repro_torch.telemetry.trace import layer_span
 
 Params = Dict[str, Any]
 
@@ -129,13 +133,64 @@ def cross_attention(p: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg: Mode
     (chunk, S_enc) score block per query chunk of cfg.attn_chunk."""
     cd = cfg.compute_dtype
     s = x.shape[1]
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(cd))
+    wq, wk, wv, wo = common.cast_weights(cd, p["wq"], p["wk"], p["wv"], p["wo"])
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
+    k = torch.einsum("bsd,dhk->bshk", enc_out, wk)
+    v = torch.einsum("bsd,dhk->bshk", enc_out, wv)
     chunk = min(cfg.attn_chunk, s)
     mask = torch.ones((1, 1, 1, enc_out.shape[1]), dtype=torch.bool, device=x.device)
     ys = [common._attend(q[:, c0:c0 + chunk], k, v, mask, 0.0, cd) for c0 in range(0, s, chunk)]
-    return torch.einsum("bshk,hkd->bsd", torch.cat(ys, dim=1), p["wo"].to(cd))
+    return torch.einsum("bshk,hkd->bsd", torch.cat(ys, dim=1), wo)
+
+
+# The layer regions (telemetry.trace.layer_span): each takes the residual
+# stream and the leaves it reads, and ends with its residual add, so the
+# regions cover the layer's forward and backward whole.
+_ATTN_KEYS = ("pre_norm", "attn", "post_attn_norm")
+_MAMBA_KEYS = ("pre_norm", "mamba")
+_DENSE_KEYS = ("ffn_norm", "mlp", "post_ffn_norm")
+_MOE_KEYS = ("ffn_norm", "moe", "mlp", "shared_mlp")
+
+
+def leaves_of(p: Params, keys: Tuple[str, ...]) -> Params:
+    """The entries of `p` under `keys` that it has: what a region reads."""
+    return {k: p[k] for k in keys if k in p}
+
+
+def _attention_block(p: Params, x, cfg: ModelConfig, layer_kind: str, positions, segments):
+    """x + [post_norm](attention(pre_norm(x)))."""
+    h = common.attention(
+        p["attn"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps), cfg,
+        layer_kind=layer_kind, positions=positions, segments=segments,
+    )
+    return x + _maybe_post(p, "post_attn_norm", h, cfg)
+
+
+def _mamba_block(p: Params, x, cfg: ModelConfig):
+    return x + mamba2.mamba_block(p["mamba"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps), cfg)
+
+
+def _dense_block(p: Params, x, cfg: ModelConfig):
+    """x + [post_norm](mlp(ffn_norm(x)))."""
+    h = common.mlp(p["mlp"], common.rmsnorm(p["ffn_norm"], x, cfg.rms_norm_eps), cfg)
+    return x + _maybe_post(p, "post_ffn_norm", h, cfg)
+
+
+def _moe_block(p: Params, x, router_state, cfg: ModelConfig, mesh_ctx):
+    """x + the routed experts and the residual MLPs over ffn_norm(x):
+    (x, new router state, aux loss, metrics)."""
+    b, s, d = x.shape
+    xin = common.rmsnorm(p["ffn_norm"], x, cfg.rms_norm_eps)
+    y, router_state, aux_moe, moe_mets = moe.moe_ffn(
+        p["moe"], xin.reshape(b * s, d), router_state, cfg, mesh_ctx,
+    )
+    h = y.reshape(b, s, d) + _residual_mlps(p, xin, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) + aux_moe
+    mets = {"max_vio": moe_mets["max_vio"], "load": moe_mets["load"]}
+    for k in ("dropped_frac_cap1", "q_abs_max", "forecast_err", "forecast_hit"):
+        if k in moe_mets:
+            mets[k] = moe_mets[k]
+    return x + h, router_state, aux, mets
 
 
 def apply_layer(
@@ -157,46 +212,34 @@ def apply_layer(
     'dropped_frac_cap1' and 'q_abs_max' (and, with the bip forecaster,
     'forecast_err' / 'forecast_hit'), as the reference's local path; on a
     mesh (`mesh_ctx`, the MoE FFN through moe.moe_ffn's expert-parallel
-    paths) the first three."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    paths) the first three. The mixer and the FFN (and zamba2's shared
+    block) run as the layer spans 'model/attention' or 'model/mamba' and
+    'model/ffn'; cross attention runs outside them."""
+    aux: Optional[torch.Tensor] = None
     mets: Dict[str, torch.Tensor] = {}
-    b, s, d = x.shape
     if mixer_kind in ("global", "local"):
-        h = common.attention(
-            p["attn"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps), cfg,
-            layer_kind=mixer_kind, positions=positions, segments=segments,
-        )
-        x = x + _maybe_post(p, "post_attn_norm", h, cfg)
+        x = layer_span("model/attention", _attention_block, leaves_of(p, _ATTN_KEYS), x, cfg,
+                       mixer_kind, positions, segments)
         if enc_out is not None and "cross" in p:
             x = x + cross_attention(
                 p["cross"], common.rmsnorm(p["cross_norm"], x, cfg.rms_norm_eps), enc_out, cfg
             )
     else:  # mamba, mamba+shared
-        x = x + mamba2.mamba_block(p["mamba"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps), cfg)
+        x = layer_span("model/mamba", _mamba_block, leaves_of(p, _MAMBA_KEYS), x, cfg)
 
     if ffn_kind == "dense":
-        h = common.mlp(p["mlp"], common.rmsnorm(p["ffn_norm"], x, cfg.rms_norm_eps), cfg)
-        x = x + _maybe_post(p, "post_ffn_norm", h, cfg)
+        x = layer_span("model/ffn", _dense_block, leaves_of(p, _DENSE_KEYS), x, cfg)
     elif ffn_kind == "moe":
-        xin = common.rmsnorm(p["ffn_norm"], x, cfg.rms_norm_eps)
-        y, router_state, aux_moe, moe_mets = moe.moe_ffn(
-            p["moe"], xin.reshape(b * s, d), router_state, cfg, mesh_ctx,
-        )
-        h = y.reshape(b, s, d) + _residual_mlps(p, xin, cfg)
-        x = x + h
-        aux = aux + aux_moe
-        mets = {"max_vio": moe_mets["max_vio"], "load": moe_mets["load"]}
-        for k in ("dropped_frac_cap1", "q_abs_max", "forecast_err", "forecast_hit"):
-            if k in moe_mets:
-                mets[k] = moe_mets[k]
+        x, router_state, aux, mets = layer_span(
+            "model/ffn", _moe_block, leaves_of(p, _MOE_KEYS), x, router_state, cfg, mesh_ctx)
 
     if mixer_kind.endswith("+shared") and shared_params is not None:
         sp = shared_params
-        x = x + common.attention(
-            sp["attn"], common.rmsnorm(sp["pre_norm"], x, cfg.rms_norm_eps), cfg,
-            layer_kind="global", positions=positions, segments=segments,
-        )
-        x = x + common.mlp(sp["mlp"], common.rmsnorm(sp["ffn_norm"], x, cfg.rms_norm_eps), cfg)
+        x = layer_span("model/attention", _attention_block, leaves_of(sp, _ATTN_KEYS), x, cfg,
+                       "global", positions, segments)
+        x = layer_span("model/ffn", _dense_block, leaves_of(sp, _DENSE_KEYS), x, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, router_state, aux, mets
 
 
