@@ -164,8 +164,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      below step 0's, a finite gradient everywhere, no leaf without a
      gradient but seamless's encoder cross leaves), tokens/s, step
      p50/p99, the peak of max_memory_allocated (gated at 76 GB), busy
-     share and launches per step of two profiled steps, and an fp32
-     control at one period of depth (bf16-compute gradient against
+     share and launches per step of two profiled steps, K4's launches in
+     the six steps (`k4_per_step`: one forward and one backward per
+     attention layer that takes K4, the forward twice under remat), and
+     an fp32 control at one period of depth (bf16-compute gradient against
      fp32-compute on the same params and batch, relative Frobenius error
      gated at FP32_CONTROL_TOL). mamba2-130m and seamless first train 4
      steps at full depth through `python -m repro_torch.launch.train`
@@ -262,6 +264,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      logits within PACKED_FP32_TOL; the bf16 runs' drift within
      MESH_NUDGE_FACTOR times one device's own from params nudged by one
      bf16 ulp (plus LAYOUT_FLOOR); seconds per part on rank 0.
+ 19. (run right after phase 2, before the phases that train through it)
+     K4, the fused causal attention (kernels/flash_attn.py), at the cells'
+     attention shapes (B x S x H x hd = 32 x 512 x 8 x 64, the 16e and 64e
+     cells; 8 x 2048 x 8 x 64, the s2048 cell), phi4-mini's training shape
+     (2 x 2048, 24 heads over 8 kv heads, hd 128) and a ragged GQA one (2 x
+     1000, 8 heads over 2): the output, the log-sum-exp and dq/dk/dv
+     against the plain version run in fp32 on the same bf16 inputs, each at
+     least as close as the plain version run in bf16 (relative L2 with 10%
+     room; the largest error with 1.5x room, or one bf16 ulp of the largest
+     entry); the backward bit-equal over repeats; then at every shape but
+     the ragged one the device ms of the forward and of forward + backward
+     beside the bound (the causal half's products at 989 TFLOP/s: 2 S^2 hd
+     FLOP per (batch, head) forward, 2.5x that backward), the plain
+     version's ms, the chunked path's that K4 replaced on the training
+     step (models/common.py `_attend`, 512-query chunks), and
+     scaled_dot_product_attention's flash path as a yardstick (library_ms;
+     the port never calls it). Phases 8, 10 and 15 hold the training
+     steps to their K4 launches, and the records' launches are theirs.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
 that outlives it (nvcc and nvidia-smi run to completion; phase 17's ranks
@@ -867,8 +887,11 @@ def train_full_width(torch, tcfg, n_steps, modules):
     tmodel = Model(tcfg, device="cuda")
     state = init_train_state(tmodel, 0, from_model_config(tcfg))
     stream = SyntheticBatchStream(tcfg, TRAIN_BATCH, TRAIN_SEQ, n_steps, device="cuda")
+    from repro_torch.kernels import flash_attn
+
     moe_gemm.reset_launch_counts()  # count only the main path's launches
     bip_admm.reset_launch_counts()
+    flash_attn.reset_launch_counts()
     t_run = time.perf_counter()
     state, log = train_loop(tmodel, stream, lr=1e-3, warmup_steps=5, total_steps=n_steps, state=state)
     train_wall = time.perf_counter() - t_run
@@ -877,10 +900,13 @@ def train_full_width(torch, tcfg, n_steps, modules):
         "grouped_matmul": moe_gemm.grouped_matmul.launches,
         "bip_dual_update": bip_admm.bip_dual_update.launches,
         "bip_admm_iteration": bip_admm.bip_admm_iteration.launches,
+        "flash_attention": flash_attn.flash_attention.launches,
+        "flash_attention_bwd": flash_attn.flash_attention.bwd_launches,
     }
     n_moe = sum(ffn == "moe" for _, ffn in tcfg.layer_kinds())
     per_step = {"grouped_gated_ffn_in": n_moe, "grouped_matmul": n_moe * (1 + 8),
-                "bip_dual_update": n_moe, "bip_admm_iteration": 0}
+                "bip_dual_update": n_moe, "bip_admm_iteration": 0,
+                "flash_attention": tcfg.n_layers, "flash_attention_bwd": tcfg.n_layers}
     summ = log.summary()
     losses = log.losses
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / summ["mean_step_time"]
@@ -900,7 +926,7 @@ def train_full_width(torch, tcfg, n_steps, modules):
     print(f"  kernel launches in this run: {launches}; per step "
           f"{ {k: v / n_steps for k, v in launches.items()} } "
           f"(expected {per_step}: K1 1, K2 1 + 8 backward and K3 1 (the whole dual update) "
-          f"per MoE layer)")
+          f"per MoE layer, K4 1 forward and 1 backward per layer)")
     for name, want in per_step.items():
         if launches[name] != want * n_steps:
             raise AssertionError(f"{name}: {launches[name]} launches in training, "
@@ -912,6 +938,165 @@ def train_full_width(torch, tcfg, n_steps, modules):
     if not summ["AvgMaxVio"] <= 1.0:
         raise AssertionError(f"AvgMaxVio {summ['AvgMaxVio']:.4f} > 1.0: routing is not balanced")
     return tmodel, state, log, launches
+
+
+# (B, S, H, KV, hd): the s512 cells, the s2048 cell; phi4-mini's training
+# shape (phase 15: 2 x 2048, 24 heads over 8, hd 128); a ragged GQA one
+FLASH_CELLS = ((32, 512, 8, 8, 64), (8, 2048, 8, 8, 64))
+FLASH_PHI4 = (2, 2048, 24, 8, 128)
+FLASH_RAGGED = (2, 1000, 8, 2, 64)
+
+
+def k4_per_step(cfg):
+    """(forward, backward) K4 launches of one training step of `cfg`: one
+    each per attention call that models/common.uses_fused_attention sends
+    to K4 (zamba2's shared block as a global layer), the forward twice for
+    the layers a remat='block' checkpoint recomputes (the whole periods)."""
+    from repro_torch.models import common
+
+    period = cfg.scan_period()
+    recomputed = period * (cfg.n_layers // period) if cfg.remat == "block" else 0
+    fwd = bwd = 0
+    for i, (mixer, _) in enumerate(cfg.layer_kinds()):
+        kind = {"global": "global", "local": "local", "mamba+shared": "global"}.get(mixer)
+        if kind and common.uses_fused_attention(cfg, "cuda", layer_kind=kind):
+            fwd += 2 if i < recomputed else 1
+            bwd += 1
+    return fwd, bwd
+
+
+def flash_qkv(torch, shape, gen):
+    b, s, h, kv, hd = shape
+    q = torch.randn(b, s, h, hd, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(b, s, kv, hd, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(b, s, kv, hd, device="cuda", generator=gen).bfloat16()
+    do = torch.randn(b, s, h, hd, device="cuda", generator=gen).bfloat16()
+    return q, k, v, do
+
+
+def flash_bound(shape, backward):
+    """(bound_ms, bound_by) of K4 forward, or forward + backward: the causal
+    half's QK^T and PV (2 S^2 hd FLOP per batch and head) and 2.5x that for
+    the backward's five products, against q, k, v, o (and do, dq, dk, dv)
+    read or written once."""
+    b, s, h, kv, hd = shape
+    flops = 2 * s * s * hd * b * h * (3.5 if backward else 1.0)
+    elems = (2 * b * s * h + 2 * b * s * kv) * hd * (2 if backward else 1)
+    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], 2 * elems / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def chunked_attention(torch, common, q, k, v, chunk=512):
+    """The plain chunk loop of models/common.attention, which the training
+    step ran before K4 (causal, positions = the row index, bf16)."""
+    pos = torch.arange(q.shape[1], device=q.device)[None, :]
+    return common.attend_chunked(q, k, v, pos, None, causal=True, window=0, softcap=0.0, chunk=chunk,
+                                 compute_dtype=torch.bfloat16)
+
+
+def check_k4(torch, flash_attn, common, gen):
+    """Phase 19 (see the module doc). Returns {shape: its kernel records},
+    whose `launches` main fills from the training phases."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def grads(fn, q, k, v, do):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*leaves)
+        return [o.detach(), *torch.autograd.grad(o, leaves, do.to(o.dtype))]
+
+    def plain(*t):
+        return flash_attn.flash_attention_plain(*t)[0]
+
+    print("[k4] fused causal attention (kernels/flash_attn.py, csrc/flash_attn.cu) against its plain version")
+    errs = {}
+    for shape in FLASH_CELLS + (FLASH_PHI4, FLASH_RAGGED):
+        q, k, v, do = flash_qkv(torch, shape, gen)
+        got = grads(flash_attn.flash_attention, q, k, v, do)
+        bf16 = grads(plain, q, k, v, do)
+        f32 = grads(plain, q.float(), k.float(), v.float(), do)
+        lse = flash_attn._forward(q, k, v)[1][..., :shape[1]]
+        lse_err = float((lse - flash_attn.flash_attention_plain(q.float(), k.float(), v.float())[1]).abs().max())
+        again = grads(flash_attn.flash_attention, q, k, v, do)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        line = []
+        for name, a, b, ref in zip(("o", "dq", "dk", "dv"), got, bf16, f32):
+            ref = ref.float()
+            err, err_plain = (float((t.float() - ref).abs().max()) for t in (a, b))
+            rel, rel_plain = (float((t.float() - ref).norm() / ref.norm()) for t in (a, b))
+            line.append(f"{name} {err:.3e} / {rel:.3e} (plain bf16 {err_plain:.3e} / {rel_plain:.3e})")
+            if not (bool(torch.isfinite(a).all()) and rel <= 1.1 * rel_plain
+                    and err <= max(1.5 * err_plain, 2.0**-7 * float(ref.abs().max()))):
+                raise AssertionError(f"K4 {shape}: {name} error {err:.3e} / {rel:.3e} against fp32, plain "
+                                     f"bf16 {err_plain:.3e} / {rel_plain:.3e}")
+        print(f"  B,S,H,KV,hd={shape}: max abs / relative L2 error against the fp32 plain version: "
+              + ", ".join(line) + f"; lse {lse_err:.3e} (tolerance 1e-4); backward bit-equal on a repeat: {same}")
+        if lse_err > 1e-4 or not same:
+            raise AssertionError(f"K4 {shape}: lse error {lse_err:.3e} or a backward that differs on a repeat")
+        errs[shape] = max(float((a.float() - r).abs().max()) for a, r in zip(got, f32))
+        del q, k, v, do, got, bf16, f32, again
+        torch.cuda.empty_cache()
+
+    records = {}
+    for shape in FLASH_CELLS + (FLASH_PHI4,):
+        q, k, v, do = flash_qkv(torch, shape, gen)
+        # (B, H, S, hd) views for SDPA, kv heads repeated (the same products)
+        qt = q.transpose(1, 2)
+        kt, vt = (t.repeat_interleave(shape[2] // shape[3], dim=2).transpose(1, 2) for t in (k, v))
+
+        def sdpa(a, b, c):
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                return torch.nn.functional.scaled_dot_product_attention(a, b, c, is_causal=True)
+
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        tleaves = [t.detach().clone().requires_grad_(True) for t in (qt, kt, vt)]
+        dot = do.transpose(1, 2)
+
+        def fb(fn, ls, g):
+            def run():
+                o = fn(*ls)
+                torch.autograd.grad(o, ls, g)
+            return run
+
+        fwd = {
+            "k4": lambda: flash_attn._forward(q, k, v),
+            "plain": lambda: plain(q, k, v),
+            "chunked": lambda: chunked_attention(torch, common, q, k, v),
+            "library": lambda: sdpa(qt, kt, vt),
+        }
+        both = {
+            "k4": fb(flash_attn.flash_attention, leaves, do),
+            "plain": fb(plain, leaves, do),
+            "chunked": fb(lambda *t: chunked_attention(torch, common, *t), leaves, do),
+            "library": fb(sdpa, tleaves, dot),
+        }
+        calls = {f"{tag} {name}": (fn, [()]) for tag, fns in (("fwd", fwd), ("fwd+bwd", both))
+                 for name, fn in fns.items()}
+        ms = device_ms(torch, calls, reps=10)
+        for tag, backward in (("fwd", False), ("fwd+bwd", True)):
+            b_ms, b_by = flash_bound(shape, backward)
+            print(f"  B,S,H,KV,hd={shape} {tag}: K4 {ms[f'{tag} k4']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                  f"{100 * b_ms / ms[f'{tag} k4']:.1f}% of it), plain {ms[f'{tag} plain']:.4f} ms, chunked "
+                  f"path {ms[f'{tag} chunked']:.4f} ms, SDPA flash (library) {ms[f'{tag} library']:.4f} ms")
+            records.setdefault(shape, []).append({
+                "name": "flash_attention",
+                "use": f"training attention, B,S,H,KV,hd={shape}, causal, {tag}; chunked_ms: "
+                       "the plain chunked path it replaced on the training step",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+                "replaces": None,
+                "launches": None,
+                "max_abs_err": errs[shape],
+                "ms": ms[f"{tag} k4"],
+                "plain_ms": ms[f"{tag} plain"],
+                "chunked_ms": ms[f"{tag} chunked"],
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": ms[f"{tag} library"],
+            })
+        del q, k, v, do, leaves, tleaves
+        torch.cuda.empty_cache()
+    return records
 
 
 def named_leaves(tree, prefix=""):
@@ -1128,7 +1313,8 @@ def balance_cell(torch, run_method, cfg, label, method, micro=1, **kw):
           f"step0 MaxVio {rec['first_step_max_vio']:.4f} ppl {rec['final_ppl']:.2f} "
           f"loss {losses[0]:.4f}->{losses[-1]:.4f} p50 {1e3 * rec['step_time_p50']:.2f} ms "
           f"p99 {1e3 * rec['step_time_p99']:.2f} ms launches/step K1 {per_step['K1']:g} "
-          f"K2 {per_step['K2']:g} K3 {per_step['K3']:g}", flush=True)
+          f"K2 {per_step['K2']:g} K3 {per_step['K3']:g} K4 {per_step['K4']:g} + {per_step['K4_bwd']:g} "
+          f"backward", flush=True)
     for name, n in want.items():
         if rec["launches"][name] != n * MATRIX_STEPS:
             raise AssertionError(f"{label}: {name} launched {rec['launches'][name]} times in "
@@ -1992,6 +2178,8 @@ def train_family(torch, np, arch, cfg, published, rows, seq, mods, out_dir):
     llama4-scout a remat step, the fp32 control. Returns its numbers."""
     (Model, make_batches, init_train_state, make_train_step, from_model_config, linear_warmup_cosine,
      unused_leaves, adamw, moe_gemm, bip_admm, mamba2, launch_train) = mods
+    from repro_torch.kernels import flash_attn
+
     res = {"layers": cfg.n_layers, "rows": rows, "seq": seq, "remat": cfg.remat}
     print(f"[train families] {cfg.name} ({cfg.family}): {cfg.n_layers} of {published} layers"
           + (f" + {cfg.n_enc_layers} encoder layers" if cfg.n_enc_layers else "")
@@ -2033,6 +2221,7 @@ def train_family(torch, np, arch, cfg, published, rows, seq, mods, out_dir):
     lap("init")
     moe_gemm.reset_launch_counts()  # count only the six steps' launches
     bip_admm.reset_launch_counts()
+    flash_attn.reset_launch_counts()
     losses, step_s, vios = [], [], []
     for _ in range(FAM_STEPS):
         ts = time.perf_counter()
@@ -2045,6 +2234,7 @@ def train_family(torch, np, arch, cfg, published, rows, seq, mods, out_dir):
             vios.append(float(mets["max_vio_per_layer"].max()))
     launches = (moe_gemm.grouped_gated_ffn_in.launches, moe_gemm.grouped_matmul.launches,
                 bip_admm.bip_dual_update.launches)
+    k4 = (flash_attn.flash_attention.launches, flash_attn.flash_attention.bwd_launches)
     peak = torch.cuda.max_memory_allocated() / 1e9
     steady = np.asarray(step_s[1:])
     p50, p99 = 1e3 * float(np.percentile(steady, 50)), 1e3 * float(np.percentile(steady, 99))
@@ -2055,7 +2245,12 @@ def train_family(torch, np, arch, cfg, published, rows, seq, mods, out_dir):
           f"{1e3 * step_s[0]:.1f} ms; peak max_memory_allocated {peak:.2f} GB (limit {PEAK_LIMIT_GB}); "
           f"leaves without a gradient: {len(no_grad)} (zero gradients, decayed)")
     res.update(lr=lr, losses=losses, p50=p50, p99=p99, tokens_s=tokens_s, peak_gb=peak, params_b=n_params / 1e9,
-               K1=launches[0], K2=launches[1], K3=launches[2])
+               K1=launches[0], K2=launches[1], K3=launches[2], K4=k4)
+    k4_want = tuple(n * FAM_STEPS for n in k4_per_step(cfg))
+    print(f"  K4 launches in the six steps (forward, backward) {k4}, want {k4_want} (one each per attention "
+          f"layer that takes K4 (head_dim {cfg.resolved_head_dim}), the forward again where remat recomputes it)")
+    if k4 != k4_want:
+        raise AssertionError(f"{cfg.name}: K4 launches {k4}, want {k4_want}")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{cfg.name}: losses {losses} are not finite and falling")
     if peak > PEAK_LIMIT_GB:
@@ -3627,13 +3822,13 @@ def main() -> int:
     from repro_torch import configs, data, robustness, telemetry
     from repro_torch.core import balancers, ref_bip
     from repro_torch.data import SyntheticBatchStream, make_batches
-    from repro_torch.kernels import bip_admm, moe_gemm, nvcc
+    from repro_torch.kernels import bip_admm, flash_attn, moe_gemm, nvcc
     from repro_torch.kernels import ops as kernel_ops
     from repro_torch.launch import balance_sweep, paper_repro
     from repro_torch.launch import train as launch_train
     from repro_torch.telemetry import metrics_report
     from repro_torch.data import frontend_stubs
-    from repro_torch.models import Model, mamba2, moe
+    from repro_torch.models import Model, common, mamba2, moe
     from repro_torch.optim import from_model_config, linear_warmup_cosine
     from repro_torch.serving import ContinuousBatchingEngine, greedy_generate
     from repro_torch.training import evaluate_ppl, init_train_state, make_train_step, train_loop
@@ -3659,9 +3854,10 @@ def main() -> int:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         futures = {name: pool.submit(timed_build, mod.build)
-                   for name, mod in (("moe_gemm.cu", moe_gemm), ("bip_admm.cu", bip_admm))}
+                   for name, mod in (("moe_gemm.cu", moe_gemm), ("bip_admm.cu", bip_admm),
+                                     ("flash_attn.cu", flash_attn))}
         build_s = {name: f.result() for name, f in futures.items()}
     print(f"[build] nvcc sm_90a, in parallel: "
           + ", ".join(f"{n} {t:.2f} s" for n, t in build_s.items())
@@ -3672,6 +3868,10 @@ def main() -> int:
     lib = moe_gemm.build()
     print(f"  bf16 GEMM dynamic shared memory per block: K1 {lib.moe_gemm_bf16_smem_bytes(1)} B, "
           f"K2 {lib.moe_gemm_bf16_smem_bytes(0)} B (the ring of stages)")
+    k4 = flash_attn.build()
+    for hd in flash_attn.HEAD_DIMS:
+        print(f"  K4 dynamic shared memory per block at head_dim {hd}: forward {k4.flash_attn_smem_bytes(hd, 0)} "
+              f"B, dk/dv {k4.flash_attn_smem_bytes(hd, 1)} B, dq {k4.flash_attn_smem_bytes(hd, 2)} B")
 
     # -- 2. kernels against their plain versions
     k1, k2 = "grouped_gated_ffn_in", "grouped_matmul"
@@ -3687,6 +3887,9 @@ def main() -> int:
     moe_err = {shape: check_kernels(torch, moe_gemm, shape, "bfloat16", gen)
                for shape in (LLAMA4, ARCTIC16, LLAMA4_TRAIN)}
     torch.cuda.empty_cache()
+
+    # -- 19. K4, the fused causal attention, before the phases that train through it
+    k4_records = check_k4(torch, flash_attn, common, gen)
 
     # -- 3. one full-width MoE layer: kernel path vs plain einsum path
     cfg = configs.get("minimind_moe_16e")
@@ -4070,6 +4273,26 @@ def main() -> int:
             "host_ms": host_ms,
             "all_reduce_ms": k3_layer[m]["all_reduce_ms"],
         })
+    # K4's launches: the training phases that ran it at the record's
+    # sequence length and head_dim (the timing loop's own calls not counted)
+    fam_2048 = [arch for arch, _, _, seq, _ in TRAIN_FAMILIES
+                if seq == 2048 and configs.get(arch).resolved_head_dim == 64 and trained[arch]["K4"][1]]
+    k4_main = {
+        FLASH_CELLS[0]: ([(run["flash_attention"], run["flash_attention_bwd"])
+                          for run in (train_launches, train64_launches)],
+                         f"phase 8 (16e, {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps) and phase 10 "
+                         f"(64e, {TRAIN64_STEPS} steps)"),
+        FLASH_CELLS[1]: ([trained[a]["K4"] for a in fam_2048],
+                         f"phase 15's six steps of {', '.join(fam_2048)} (S 2048, hd 64)"),
+        FLASH_PHI4: ([trained["phi4_mini_3_8b"]["K4"]],
+                     "phase 15's six steps of phi4_mini_3_8b (remat: the forward twice a step)"),
+    }
+    for shape, recs in k4_records.items():
+        runs, where = k4_main[shape]
+        for rec in recs:
+            rec["use"] += f"; launches: {where}"
+            rec["launches"] = {"fwd": sum(f for f, _ in runs), "bwd": sum(b for _, b in runs)}
+            record.append(rec)
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({

@@ -141,17 +141,19 @@ def get_tokenizer(data: str, tokenizer_path: Optional[str], vocab_size: int):
 
 
 def _launch_counts() -> Dict[str, int]:
-    from repro_torch.kernels import bip_admm, moe_gemm
+    from repro_torch.kernels import bip_admm, flash_attn, moe_gemm
 
     return {"K1": moe_gemm.grouped_gated_ffn_in.launches, "K2": moe_gemm.grouped_matmul.launches,
-            "K3": bip_admm.bip_dual_update.launches + bip_admm.bip_admm_iteration.launches}
+            "K3": bip_admm.bip_dual_update.launches + bip_admm.bip_admm_iteration.launches,
+            "K4": flash_attn.flash_attention.launches, "K4_bwd": flash_attn.flash_attention.bwd_launches}
 
 
 def _reset_launch_counts() -> None:
-    from repro_torch.kernels import bip_admm, moe_gemm
+    from repro_torch.kernels import bip_admm, flash_attn, moe_gemm
 
     moe_gemm.reset_launch_counts()
     bip_admm.reset_launch_counts()
+    flash_attn.reset_launch_counts()
 
 
 def run_method(

@@ -4,8 +4,10 @@ slot cache), gated MLPs, embeddings.
 
 Functions take the reference's parameter layouts (wq (d,h,hd), wo (h,hd,d),
 w_gate (d,f), ...) as plain dicts of tensors. Attention is plain torch, as
-the reference's is plain jnp: fully masked rows are zeroed after the
-softmax, which scaled_dot_product_attention would turn into NaN.
+the reference's is plain jnp (fully masked rows are zeroed after the
+softmax), except where `uses_fused_attention` holds: causal, unsegmented,
+global attention over the row indices in bf16 on the card runs K4, the
+fused kernel of kernels/flash_attn.py.
 
 The two cached attentions (`attention_chunk`, `_attention_chunk_packed`)
 also run on one rank's block of a cache on a device mesh (`KVBlock`): its
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.router import gather_rows
 from repro_torch.distributed import collectives
+from repro_torch.kernels import flash_attn
 from repro_torch.telemetry.trace import cast_span
 
 Tensor = torch.Tensor
@@ -206,6 +209,33 @@ def causal_window_mask(q_pos: Tensor, k_pos: Tensor, window: int) -> Tensor:
     return mask
 
 
+def uses_fused_attention(
+    cfg: ModelConfig,
+    device,
+    *,
+    layer_kind: str = "global",
+    positions: Optional[Tensor] = None,
+    segments: Optional[Tensor] = None,
+    causal: bool = True,
+) -> bool:
+    """Whether `attention` on `device` runs K4 (kernels/flash_attn.py): on
+    the card, bf16 compute, causal, no segments, no logit softcap, a global
+    layer (no window), positions left None (so they are the row index,
+    known without reading a tensor) and a head_dim the kernel takes. Any
+    other call keeps the plain chunked path."""
+    window = cfg.window_size if layer_kind == "local" else 0
+    return (
+        torch.device(device).type == "cuda"
+        and cfg.compute_dtype == torch.bfloat16
+        and causal
+        and segments is None
+        and cfg.attn_logit_softcap == 0
+        and window == 0
+        and positions is None
+        and cfg.resolved_head_dim in flash_attn.HEAD_DIMS
+    )
+
+
 def attention(
     params: Params,
     x: Tensor,  # (B, S, d)
@@ -228,9 +258,15 @@ def attention(
     (packed multi-document rows, data/packing.py 'pack_nocross'); padded
     query rows take segment -2, which no key carries, and their fully
     masked rows are zeroed by the softmax, not NaN.
+
+    `positions` None means the row index (the same `arange` is built for
+    RoPE); where `uses_fused_attention` holds, the scores are one K4 call
+    on q, k and v as they lie instead of the chunk loop.
     """
-    b, s, _ = x.shape
+    s = x.shape[1]
     cd = cfg.compute_dtype
+    fused = uses_fused_attention(cfg, x.device, layer_kind=layer_kind, positions=positions,
+                                 segments=segments, causal=causal)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     theta = cfg.rope_theta
@@ -249,8 +285,21 @@ def attention(
         k = rmsnorm(params["k_norm"], k, cfg.rms_norm_eps)
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
+    if fused:
+        return torch.einsum("bshk,hkd->bsd", flash_attn.flash_attention(q, k, v), wo)
 
-    chunk = min(cfg.attn_chunk, s)
+    y = attend_chunked(q, k, v, positions, segments, causal=causal, window=window,
+                       softcap=cfg.attn_logit_softcap, chunk=min(cfg.attn_chunk, s), compute_dtype=cd)
+    return torch.einsum("bshk,hkd->bsd", y, wo)
+
+
+def attend_chunked(q, k, v, positions, segments, *, causal: bool, window: int, softcap: float,
+                   chunk: int, compute_dtype) -> Tensor:
+    """The plain path of `attention` after RoPE: q (B,S,H,D) in chunks of
+    `chunk` queries (the query axis padded to a chunk multiple with
+    position -1) against all of k, v (B,S,KV,D), masked by `positions`
+    (1|B, S), `window` and `segments` -> (B,S,H,D)."""
+    b, s = q.shape[:2]
     pad = (-s) % chunk
     qpos = positions.expand(b, s)
     segq = None if segments is None else segments.expand(b, s)
@@ -266,14 +315,13 @@ def attention(
             mask = causal_window_mask(pi, positions, window)[:, None]  # (B, 1, c, S)
         else:
             mask = (pi >= 0)[:, None, :, None] & torch.ones(
-                (1, 1, 1, s), dtype=torch.bool, device=x.device
+                (1, 1, 1, s), dtype=torch.bool, device=q.device
             )
         if segq is not None:
             si = segq[:, c0:c0 + chunk]
             mask = mask & (si[:, :, None] == segments[:, None, :])[:, None]
-        ys.append(_attend(qi, k, v, mask, cfg.attn_logit_softcap, cd))
-    y = torch.cat(ys, dim=1)[:, :s]
-    return torch.einsum("bshk,hkd->bsd", y, wo)
+        ys.append(_attend(qi, k, v, mask, softcap, compute_dtype))
+    return torch.cat(ys, dim=1)[:, :s]
 
 
 def attention_chunk(

@@ -284,7 +284,6 @@ class Model:
         x, n_prefix = layer_span("model/embed", self._embed_inputs, leaves_of(params, _EMBED_KEYS),
                                  batch)
         enc_out = self._encode(params, batch)
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
         segments = batch.get("segments") if n_prefix == 0 else None
         if segments is not None and cfg.family in ("ssm", "hybrid"):
             raise ValueError(
@@ -292,8 +291,10 @@ class Model:
                 f"{cfg.family} architectures leak document state through the "
                 "mamba recurrence: use pack_mode='pack' or 'pad'"
             )
+        # positions None: the row index, which attention builds itself and
+        # which lets it take the fused kernel without reading a tensor
         x, new_states, aux, mets = stack.apply_stack(
-            params["stack"], x, router_states, cfg, positions=positions,
+            params["stack"], x, router_states, cfg, positions=None,
             segments=segments, enc_out=enc_out, mesh_ctx=self.mesh_ctx,
         )
         logits = layer_span("model/head", self._head, leaves_of(params, _HEAD_KEYS), x, n_prefix)
