@@ -1,7 +1,9 @@
 """Operations and bytes the benchmark counts, and the card's published peaks.
 
-Everything here depends only on the configuration, the traffic's shapes and
-the step's expert loads; nothing reads the program.
+Everything here depends only on shapes, the routing settings and the step's
+expert loads, not on any model's layout; nothing reads the program. A
+model's FLOPs per token are its plain reference's (`model_flops_per_token`
+in bench/reference/<reference>.py).
 
 Peaks: NVIDIA H100 SXM data sheet, dense rates at the full 700 W limit.
 Roofline bounds count each input read once and each output written once;
@@ -23,25 +25,6 @@ BF16_BYTES = 2
 def capacity(n_tokens: int, cfg: dict) -> int:
     r = cfg["routing"]
     return max(math.ceil(r["top_k"] * n_tokens / r["n_experts"] * r["capacity_factor"]), 1)
-
-
-def active_matmul_params(cfg: dict) -> int:
-    """Matmul parameters one token uses: attention's four projections, its
-    top-k experts, the shared experts and the router in every layer, and
-    the tied head."""
-    d, h, kv, hd = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"]
-    r = cfg["routing"]
-    attn = d * (h + 2 * kv) * hd + h * hd * d
-    experts = (r["top_k"] + cfg["n_shared_experts"]) * 3 * d * cfg["moe_d_ff"]
-    per_layer = attn + experts + d * r["n_experts"]
-    return cfg["n_layers"] * per_layer + d * cfg["vocab_size"]
-
-
-def model_flops_per_token(cfg: dict, seq_len: int) -> float:
-    """Forward and backward model FLOPs of one token: 6 per matmul parameter
-    it uses, plus causal attention's scores and values, 6 L S d (half of the
-    full 12 L S d). No recomputation, no capacity padding."""
-    return 6.0 * active_matmul_params(cfg) + 6.0 * cfg["n_layers"] * seq_len * cfg["d_model"]
 
 
 def _gemm_bound_s(flops: float, elems: float) -> float:

@@ -2,12 +2,16 @@
 traced) window, and the comparison with the plain reference.
 
 A cell (an entry of BENCHMARK.json's workloads) names a configuration
-(`configs/<name>.json`: the port's registry id, the published sizes, the
-plain reference beside them), a traffic mix (`traffic/<name>.json`: batch,
-sequence length, token statistics, the routing path, the optimizer and
-schedule, the pool of batches and the checked and traced steps), and its
-limits (`limits/<cell>.json`). Per-layer metrics are read by
-`metrics/<metric>.py`. Everything is found by name.
+(`configs/<name>.json`: the port's registry id, the published sizes, and
+the name of its plain reference, `reference/<reference>.py`, which also
+lays out the parameter tree (`leaf_specs`), counts the model's FLOPs
+(`model_flops_per_token`) and records the q and loads of the layers that
+have a router), a traffic mix (`traffic/<name>.json`: batch, sequence
+length, token statistics, the routing path, the optimizer and schedule,
+the pool of batches and the checked and traced steps), and its limits
+(`limits/<cell>.json`). Per-layer metrics are read by
+`metrics/<metric>.py`. Everything is found by name; nothing here names a
+leaf or a layer kind of any model.
 
 Set-up builds the port's model and AdamW state around weights made from the
 seed (inputs.py), makes the pool of batches, and drives the port's train
@@ -27,6 +31,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import math
 import statistics
 import sys
 import time
@@ -57,6 +62,7 @@ class Cell:
     limits: dict       # limits/<cell>.json ({} where the cell has none yet)
     end_to_end: List[dict]
     per_layer: List[dict]
+    reference: str     # the plain reference's module: bench.reference.<the file's "reference">
 
     @property
     def tokens_per_step(self) -> int:
@@ -78,42 +84,82 @@ def resolve(name: str, spec: Optional[dict] = None, base: Path = BENCH) -> Cell:
     reported = {m["name"] for m in e2e}
     layer = [m for m in spec["per_layer"]
              if (name in m["workloads"] if "workloads" in m else m["moves"] in reported)]
+    doc = load_json(ROOT / conf["file"])
     return Cell(
-        name=name, chips=w["chips"], config=load_json(ROOT / conf["file"]),
+        name=name, chips=w["chips"], config=doc,
         mix=load_json(base / "traffic" / f"{w['traffic']}.json"),
         limits=load_json(limits_path) if limits_path.exists() else {},
-        end_to_end=e2e, per_layer=layer,
+        end_to_end=e2e, per_layer=layer, reference=f"bench.reference.{doc['reference']}",
     )
+
+
+def reference(cell: Cell):
+    """The cell's plain reference module."""
+    return importlib.import_module(cell.reference)
+
+
+def weights(cell: Cell, seed: int, device) -> Dict:
+    """The seed's fp32 weights in the tree the cell's reference lays out."""
+    return inputs.make_params(reference(cell).leaf_specs(cell.config["config"]), seed, device)
 
 
 # ------------------------------------------------------------------ the port
 
 
-def _dtype_name(v) -> str:
-    return str(v).replace("torch.", "") if isinstance(v, torch.dtype) else v
+def _as_file(v):
+    """A field of the port's config as the JSON file writes it."""
+    if isinstance(v, torch.dtype):
+        return str(v).replace("torch.", "")
+    if isinstance(v, tuple):
+        return [_as_file(x) for x in v]
+    return v
+
+
+def _as_port(have, value):
+    """The file's `value` in the type of the port's field `have`: a nested
+    spec (a dataclass) takes the keys the value gives, key by key."""
+    if dataclasses.is_dataclass(have):
+        return dataclasses.replace(have, **{k: _as_port(getattr(have, k), v) for k, v in value.items()})
+    if isinstance(have, torch.dtype):
+        return getattr(torch, value)
+    if isinstance(have, tuple):
+        return tuple(value)
+    return value
+
+
+def _held(doc: dict, have, want: dict, prefix: str = "") -> dict:
+    """The file's values that the port takes (the keys `reduced` lists, by
+    dotted name or by a whole group), as a nested dict; ValueError naming
+    the dotted key where any other value the file states is not the port's."""
+    take = {}
+    for key, value in want.items():
+        label, field = prefix + key, getattr(have, key)
+        if label in doc["reduced"]:
+            take[key] = value
+        elif dataclasses.is_dataclass(field) and isinstance(value, dict):
+            inner = _held(doc, field, value, label + ".")
+            if inner:
+                take[key] = inner
+        elif _as_file(field) != value:
+            raise ValueError(f"{doc['name']}: the port's config {doc['registry']!r} has "
+                             f"{label} = {_as_file(field)!r}, bench's file states {value!r}")
+    return take
 
 
 def port_config(doc: dict, mix: dict):
     """The port's registry config for `doc`, held to the file: every size
-    the file states must be the port's, except the keys listed in `reduced`,
+    the file states, in nested specs key by key, must be the port's, except
+    the keys listed in `reduced` (top-level or dotted, `routing.n_experts`),
     which take the file's value (ValueError naming the key otherwise). The
-    mix's routing path (strategy, sync, kernels) is applied after."""
+    mix's routing path (strategy, sync, kernels), where it gives one, is
+    applied after."""
     from repro_torch import configs
 
     cfg = configs.get(doc["registry"])
-    reduced = set(doc["reduced"])
-    top, routing = {}, {}
-    for key, want in doc["config"].items():
-        pairs = ([(f"routing.{k}", getattr(cfg.routing, k), v, routing, k) for k, v in want.items()]
-                 if key == "routing" else [(key, getattr(cfg, key), want, top, key)])
-        for label, have, value, dest, attr in pairs:
-            if key in reduced:
-                dest[attr] = getattr(torch, value) if isinstance(have, torch.dtype) else value
-            elif _dtype_name(have) != value:
-                raise ValueError(f"{doc['name']}: the port's config {doc['registry']!r} has "
-                                 f"{label} = {_dtype_name(have)!r}, bench's file states {value!r}")
-    routing.update(mix["routing"])
-    return dataclasses.replace(cfg, routing=dataclasses.replace(cfg.routing, **routing), **top)
+    take = _held(doc, cfg, doc["config"])
+    if "routing" in mix:
+        take["routing"] = {**take.get("routing", {}), **mix["routing"]}
+    return _as_port(cfg, take)
 
 
 @dataclasses.dataclass
@@ -133,7 +179,7 @@ def build_program(cell: Cell, seed: int, device) -> Program:
     cfg = port_config(cell.config, cell.mix)
     model = Model(cfg, device=device)
     t = time.monotonic()
-    params = inputs.make_params(cell.config["config"], seed, device)
+    params = weights(cell, seed, device)
     _sync(device)
     log(f"set-up: weights {time.monotonic() - t:.2f} s (with the device's first use)")
     opt_cfg = adamw.from_model_config(cfg, **cell.mix["adamw"])
@@ -148,7 +194,9 @@ def build_program(cell: Cell, seed: int, device) -> Program:
 
 def checked_steps(prog: Program, cell: Cell, seed: int, device) -> Dict:
     """The mix's checked steps through the program, recorded in
-    reference.train_steps' layout (one host read at the end)."""
+    reference.train_steps' layout (one host read at the end): q and the
+    loads of the layers with a router state, in layer order; none where no
+    layer has one."""
     from repro_torch.optim.adamw import tree_leaves
 
     rec = {"loss": [], "q": [], "load": []}
@@ -156,13 +204,16 @@ def checked_steps(prog: Program, cell: Cell, seed: int, device) -> Dict:
     for i in range(cell.mix["checked_steps"]):
         prog.state, mets = prog.step(prog.state, inputs.batch(prog.pool, i))
         rec["loss"].append(mets["loss"])
-        rec["q"].append(torch.stack([st["q"] for st in prog.state.router_states]))
-        rec["load"].append(mets["load_per_layer"])
+        qs = [st["q"] for st in prog.state.router_states if st is not None]
+        if qs:
+            rec["q"].append(torch.stack(qs))
+        if "load_per_layer" in mets:
+            rec["load"].append(mets["load_per_layer"])
         if i == 0:  # the gradient as AdamW took it: mu after one step, over (1 - b1)
             mu = tree_leaves(prog.state.opt_state["mu"])
             rec["grad_norms"] = torch.stack([torch.linalg.vector_norm(t) for t in mu]) / (1 - b1)
     with torch.no_grad():
-        p0 = tree_leaves(inputs.make_params(cell.config["config"], seed, device))
+        p0 = tree_leaves(weights(cell, seed, device))
         rec["update_norms"] = torch.stack([torch.linalg.vector_norm(p - q)
                                            for p, q in zip(tree_leaves(prog.state.params), p0)])
         del p0
@@ -173,10 +224,9 @@ def checked_steps(prog: Program, cell: Cell, seed: int, device) -> Dict:
 
 def reference_records(cell: Cell, seed: int, pool: torch.Tensor, device, precision: str = "fp32") -> Dict:
     """The plain reference through the same checked steps from the same inputs."""
-    ref = importlib.import_module(f"bench.reference.{cell.config['reference']}")
-    params = inputs.make_params(cell.config["config"], seed, device)
+    params = weights(cell, seed, device)
     batches = [inputs.batch(pool, i) for i in range(cell.mix["checked_steps"])]
-    return ref.train_steps(params, batches, cell.config["config"], cell.mix, precision)
+    return reference(cell).train_steps(params, batches, cell.config["config"], cell.mix, precision)
 
 
 # ------------------------------------------------------------------ windows
@@ -233,7 +283,8 @@ def timed_window(prog: Program, cell: Cell, seconds: float, device) -> Dict:
 def traced_window(prog: Program, cell: Cell, device) -> Dict:
     """The mix's traced steps under torch.profiler (host and device), after
     one traced step that is left out; returns tracing.read's records plus
-    the steps, the loads and the config."""
+    the steps, the router layers' loads and MaxVio (none without a router
+    layer), the configuration and its reference's module."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = torch.device(device).type == "cuda"
@@ -250,14 +301,15 @@ def traced_window(prog: Program, cell: Cell, device) -> Dict:
         with record_function(tracing.WINDOW_SPAN):
             for i in range(n):
                 prog.state, mets = prog.step(prog.state, inputs.batch(prog.pool, first + 1 + i))
-                loads.append(mets["load_per_layer"])
-                vios.append(mets["max_vio_per_layer"])
+                if "load_per_layer" in mets:
+                    loads.append(mets["load_per_layer"])
+                    vios.append(mets["max_vio_per_layer"])
                 losses.append(mets["loss"])
             _sync(device)
     rec = tracing.read(prof)
     rec.update(steps=n, loads=[t.cpu() for t in loads], max_vio=[t.cpu() for t in vios],
                failed=int((~torch.isfinite(torch.stack(losses))).sum()),
-               config=cell.config["config"], mix=cell.mix,
+               config=cell.config["config"], reference=cell.reference, mix=cell.mix,
                tokens_per_step=cell.tokens_per_step,
                memory_peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0)
     return rec
@@ -314,7 +366,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
     t = time.monotonic()
     ref_rec = reference_records(cell, seed, pool, device)
     log(f"reference: {cell.mix['checked_steps']} steps {time.monotonic() - t:.2f} s")
-    nums = check.numbers(prog_rec, ref_rec, cell.tokens_per_step, cell.config["config"]["routing"]["top_k"])
+    nums = check.numbers(prog_rec, ref_rec)
     failed = measured["failed"]
     correct = bool(cell.limits) and failed == 0 and check.verdict(nums, cell.limits)
 
@@ -338,7 +390,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
     }
     if trace:
         out["breakdown"] = tracing.breakdown(measured)
-    out["checks"] = {k: {"value": nums[k], "limit": lim["limit"]} for k, lim in cell.limits.items()}
+    out["checks"] = {k: {"value": nums.get(k, math.inf), "limit": lim["limit"]}
+                     for k, lim in cell.limits.items()}
     return out
 
 

@@ -3,10 +3,11 @@ synthetic token batches. Nothing here imports the program.
 
 Weights: one normal draw of every parameter at once, on the device, from a
 torch.Generator seeded with the run's seed, cut into the leaves of the
-model's tree (views of the one buffer) and scaled as the model initialises
-them (1/sqrt(fan_in); output projections further by 1/sqrt(2 L); RMSNorm
-scales 1). The same seed gives the same numbers on the same device, so the
-reference regenerates them rather than keeping a copy.
+model's tree (views of the one buffer) and scaled, or set, as the model
+initialises them. Which leaves, and how, is the configuration's: its plain
+reference lists them (`leaf_specs(cfg)` in bench/reference/<reference>.py).
+The same seed gives the same numbers on the same device, so the reference
+regenerates them rather than keeping a copy.
 
 Tokens: a copy of the port's synthetic language-model generator (Zipf
 unigrams plus a random successor grammar followed with probability
@@ -15,59 +16,35 @@ unigrams plus a random successor grammar followed with probability
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 Tensor = torch.Tensor
+Spec = Tuple[tuple, tuple, Union[float, Tensor]]
 
 
-def leaf_specs(cfg: dict) -> List[Tuple[tuple, tuple, float]]:
-    """(keys from the root, shape, init scale; 0 means ones) of every
-    parameter of the minimind MoE layout, as the model's tree nests them."""
-    d, h, kv, hd = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"]
-    f, n_layers, v = cfg["moe_d_ff"], cfg["n_layers"], cfg["vocab_size"]
-    m = cfg["routing"]["n_experts"]
-    fs = f * cfg["n_shared_experts"]
-    s_in, deep = 1.0 / math.sqrt(d), 1.0 / math.sqrt(2 * n_layers)
-    layer = [
-        (("pre_norm", "scale"), (d,), 0.0),
-        (("attn", "wq"), (d, h, hd), s_in),
-        (("attn", "wk"), (d, kv, hd), s_in),
-        (("attn", "wv"), (d, kv, hd), s_in),
-        (("attn", "wo"), (h, hd, d), s_in * deep),
-        (("ffn_norm", "scale"), (d,), 0.0),
-        (("moe", "w_router"), (d, m), s_in),
-        (("moe", "w_gate"), (m, d, f), s_in),
-        (("moe", "w_up"), (m, d, f), s_in),
-        (("moe", "w_down"), (m, f, d), deep / math.sqrt(f)),
-        (("shared_mlp", "w_gate"), (d, fs), s_in),
-        (("shared_mlp", "w_up"), (d, fs), s_in),
-        (("shared_mlp", "w_down"), (fs, d), deep / math.sqrt(fs)),
-    ]
-    out = [(("embed", "tok"), (v, d), s_in)]
-    out += [(("stack", "layers", i) + keys, shape, scale)
-            for i in range(n_layers) for keys, shape, scale in layer]
-    out.append((("final_norm", "scale"), (d,), 0.0))
-    return out
-
-
-def make_params(cfg: dict, seed: int, device) -> Dict:
-    """The seeded fp32 parameter tree (every leaf a view of one buffer)."""
-    specs = leaf_specs(cfg)
+def make_params(specs: Sequence[Spec], seed: int, device) -> Dict:
+    """The seeded fp32 parameter tree of `specs` (every leaf a view of one
+    buffer): (keys from the root, shape, init) per leaf, as a reference's
+    `leaf_specs` lists them. An init is a float, the scale of the leaf's
+    normal draw, or a tensor, a fixed value broadcast over the leaf (a norm's
+    ones, a zero bias, a vector such as a decay's). The draw covers every
+    leaf in spec order, fixed ones too, so a leaf's offset, and so its bits,
+    depend only on the leaves listed before it."""
     gen = torch.Generator(device=device).manual_seed(seed)
     flat = torch.randn(sum(math.prod(s) for _, s, _ in specs), generator=gen, device=device)
     tree: dict = {}
     at = 0
     with torch.no_grad():
-        for keys, shape, scale in specs:
+        for keys, shape, init in specs:
             leaf = flat[at:at + math.prod(shape)].view(shape)
             at += leaf.numel()
-            if scale:
-                leaf.mul_(scale)
+            if isinstance(init, Tensor):
+                leaf.copy_(init.to(device).expand(shape))
             else:
-                leaf.fill_(1.0)
+                leaf.mul_(init)
             node = tree
             for key, nxt in zip(keys[:-1], keys[1:]):
                 if isinstance(key, int):

@@ -23,11 +23,16 @@ expert, head; the router stays fp32) and the gradients that flow back into
 them: 'fp32' leaves them as they are, 'bf16' rounds to bfloat16, 'fp8'
 to float8 e4m3 with one scale per tensor (amax to 448). The fp8 form is the
 control that the comparison has to reject. fp32 runs with TF32 off.
+
+Beside `train_steps`, the facts about this model that the harness reads:
+`leaf_specs` (the parameter tree and how each leaf is drawn) and
+`model_flops_per_token` (the count `step_mfu` divides by). Every layer has a
+router, so `train_steps` records q and the loads of every layer.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +43,61 @@ Tensor = torch.Tensor
 N_BINS = 512
 REFINE = 1
 FP8_MAX = 448.0  # largest finite float8 e4m3fn
+ONE = torch.tensor(1.0)  # a fixed init (leaf_specs): an RMSNorm's scale
+
+
+# ------------------------------------------------------------ layout, counts
+
+
+def leaf_specs(cfg: dict) -> List[Tuple[tuple, tuple, object]]:
+    """(keys from the root, shape, init: a normal draw's scale or a fixed
+    value) of every parameter, as the port's tree nests them and as the port
+    initialises them (1/sqrt(fan_in); output projections further by
+    1/sqrt(2 L); RMSNorm scales 1)."""
+    d, h, kv, hd = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"]
+    f, n_layers, v = cfg["moe_d_ff"], cfg["n_layers"], cfg["vocab_size"]
+    m = cfg["routing"]["n_experts"]
+    fs = f * cfg["n_shared_experts"]
+    s_in, deep = 1.0 / math.sqrt(d), 1.0 / math.sqrt(2 * n_layers)
+    layer = [
+        (("pre_norm", "scale"), (d,), ONE),
+        (("attn", "wq"), (d, h, hd), s_in),
+        (("attn", "wk"), (d, kv, hd), s_in),
+        (("attn", "wv"), (d, kv, hd), s_in),
+        (("attn", "wo"), (h, hd, d), s_in * deep),
+        (("ffn_norm", "scale"), (d,), ONE),
+        (("moe", "w_router"), (d, m), s_in),
+        (("moe", "w_gate"), (m, d, f), s_in),
+        (("moe", "w_up"), (m, d, f), s_in),
+        (("moe", "w_down"), (m, f, d), deep / math.sqrt(f)),
+        (("shared_mlp", "w_gate"), (d, fs), s_in),
+        (("shared_mlp", "w_up"), (d, fs), s_in),
+        (("shared_mlp", "w_down"), (fs, d), deep / math.sqrt(fs)),
+    ]
+    out = [(("embed", "tok"), (v, d), s_in)]
+    out += [(("stack", "layers", i) + keys, shape, init)
+            for i in range(n_layers) for keys, shape, init in layer]
+    out.append((("final_norm", "scale"), (d,), ONE))
+    return out
+
+
+def active_matmul_params(cfg: dict) -> int:
+    """Matmul parameters one token uses: attention's four projections, its
+    top-k experts, the shared experts and the router in every layer, and
+    the tied head."""
+    d, h, kv, hd = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"]
+    r = cfg["routing"]
+    attn = d * (h + 2 * kv) * hd + h * hd * d
+    experts = (r["top_k"] + cfg["n_shared_experts"]) * 3 * d * cfg["moe_d_ff"]
+    per_layer = attn + experts + d * r["n_experts"]
+    return cfg["n_layers"] * per_layer + d * cfg["vocab_size"]
+
+
+def model_flops_per_token(cfg: dict, seq_len: int) -> float:
+    """Forward and backward model FLOPs of one token: 6 per matmul parameter
+    it uses, plus causal attention's scores and values, 6 L S d (half of the
+    full 12 L S d). No recomputation, no capacity padding."""
+    return 6.0 * active_matmul_params(cfg) + 6.0 * cfg["n_layers"] * seq_len * cfg["d_model"]
 
 
 def _round(t: Tensor, precision: str) -> Tensor:
@@ -239,22 +299,22 @@ def lr_at(step: int, peak: float, warmup: int, total: int, final_frac: float = 0
     return peak * (final_frac + (1.0 - final_frac) * 0.5 * (1.0 + math.cos(math.pi * t)))
 
 
-def train_steps(params, batches, cfg: dict, mix: dict, precision: str = "fp32") -> Dict[str, list]:
-    """len(batches) training steps from `params` (a tree of fp32 tensors,
-    updated in place) and zero duals. Returns per step 'loss' (float),
-    'q' (L, m) and 'load' (L, m); 'grad_norms' of each leaf's gradient
+def adamw_steps(params, batches, mix: dict, loss_step: Callable) -> Dict[str, list]:
+    """len(batches) AdamW steps from `params` (a tree of fp32 tensors,
+    updated in place), TF32 off. `loss_step(batch)` gives the step's loss
+    and what the step records beside it ({'q': (L, m), 'load': (L, m)} of
+    the layers with a router; {} where none has one). Returns per step
+    'loss' (float), 'q' and 'load'; 'grad_norms' of each leaf's gradient
     after clipping at step 1, and 'update_norms' of each leaf's change over
-    all the steps (leaves in `leaves` order)."""
+    all the steps (leaves in `leaves` order). Weight decay on every leaf but
+    the final norm."""
     opt = mix["adamw"]
-    strategy = mix["routing"]["strategy"]
     named = leaves(params)
     ps = [t for _, t in named]
     decay = [not path.startswith("final_norm") for path, _ in named]
     p0 = [t.detach().clone() for t in ps]
     mu = [torch.zeros_like(t) for t in ps]
     nu = [torch.zeros_like(t) for t in ps]
-    m = cfg["routing"]["n_experts"]
-    qs = [torch.zeros(m, device=ps[0].device) for _ in params["stack"]["layers"]]
     out = {"loss": [], "q": [], "load": [], "grad_norms": None}
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -262,7 +322,7 @@ def train_steps(params, batches, cfg: dict, mix: dict, precision: str = "fp32") 
         for step, batch in enumerate(batches):
             for t in ps:
                 t.requires_grad_(True)
-            loss, qs, load = loss_fn(params, batch["tokens"], batch["labels"], qs, cfg, strategy, precision)
+            loss, recorded = loss_step(batch)
             grads = torch.autograd.grad(loss, ps)
             with torch.no_grad():
                 gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
@@ -281,8 +341,8 @@ def train_steps(params, batches, cfg: dict, mix: dict, precision: str = "fp32") 
                         delta = delta + opt["weight_decay"] * p
                     p.sub_(lr * delta)
             out["loss"].append(float(loss.detach()))
-            out["q"].append(torch.stack(qs).cpu())
-            out["load"].append(load.cpu())
+            for key, value in recorded.items():
+                out[key].append(value.cpu())
         with torch.no_grad():
             out["update_norms"] = torch.stack(
                 [torch.linalg.vector_norm(p - p_0) for p, p_0 in zip(ps, p0)]).tolist()
@@ -291,3 +351,18 @@ def train_steps(params, batches, cfg: dict, mix: dict, precision: str = "fp32") 
         for t in ps:
             t.requires_grad_(False)
     return out
+
+
+def train_steps(params, batches, cfg: dict, mix: dict, precision: str = "fp32") -> Dict[str, list]:
+    """len(batches) training steps from `params` and zero duals (adamw_steps),
+    recording each layer's q and loads."""
+    strategy = mix["routing"]["strategy"]
+    m = cfg["routing"]["n_experts"]
+    qs = [torch.zeros(m, device=params["embed"]["tok"].device) for _ in params["stack"]["layers"]]
+
+    def loss_step(batch):
+        nonlocal qs
+        loss, qs, load = loss_fn(params, batch["tokens"], batch["labels"], qs, cfg, strategy, precision)
+        return loss, {"q": torch.stack(qs), "load": load}
+
+    return adamw_steps(params, batches, mix, loss_step)

@@ -68,3 +68,44 @@ def test_reduced_keys_take_the_files_values():
 def test_unknown_cell_is_refused():
     with pytest.raises(KeyError, match="no workload"):
         harness.resolve("no-such-cell")
+
+
+# a configuration file with a nested spec (`ssm`) and a tuple field
+# (`attn_pattern`), as JSON writes them, for the port's mamba2-130m
+MAMBA2 = """{"name": "mamba2-130m", "registry": "mamba2_130m", "reference": "none", "reduced": [],
+ "config": {"n_layers": 24, "d_model": 768, "vocab_size": 50280, "family": "ssm",
+            "attn_pattern": ["global"], "compute_dtype": "bfloat16",
+            "ssm": {"d_state": 128, "d_conv": 4, "expand": 2, "head_dim": 64, "n_groups": 1,
+                    "chunk_size": 128}}}"""
+
+
+def test_config_guard_takes_nested_specs_and_lists():
+    from repro_torch import configs
+
+    assert harness.port_config(json.loads(MAMBA2), {}) == configs.get("mamba2_130m")
+
+
+@pytest.mark.parametrize("group, key, value, named", [
+    ("ssm", "d_state", 64, "ssm.d_state"),
+    ("ssm", "chunk_size", 256, "ssm.chunk_size"),
+    (None, "attn_pattern", ["local"], "attn_pattern"),
+])
+def test_config_guard_names_the_nested_key(group, key, value, named):
+    doc = json.loads(MAMBA2)
+    (doc["config"][group] if group else doc["config"])[key] = value
+    with pytest.raises(ValueError, match=named.replace(".", r"\.")):
+        harness.port_config(doc, {})
+
+
+def test_dotted_reduced_keys_take_the_files_values():
+    doc = json.loads(MAMBA2)
+    doc["config"]["n_layers"], doc["config"]["ssm"]["d_state"] = 2, 16
+    doc["reduced"] = ["n_layers", "ssm.d_state"]
+    cfg = harness.port_config(doc, {})
+    assert (cfg.n_layers, cfg.ssm.d_state, cfg.ssm.chunk_size, cfg.attn_pattern) == (2, 16, 128, ("global",))
+    cell = harness.resolve(CELLS[0])
+    doc = copy.deepcopy(cell.config)
+    doc["config"]["routing"]["n_experts"] = 8
+    doc["reduced"] = ["routing.n_experts"]
+    cfg = harness.port_config(doc, cell.mix)
+    assert (cfg.routing.n_experts, cfg.routing.top_k, cfg.routing.strategy) == (8, 4, "bip")

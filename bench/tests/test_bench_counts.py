@@ -1,10 +1,12 @@
-"""bench/counts.py against hand counts at the cells' shapes."""
+"""bench/counts.py, and the minimind reference's FLOP count, against hand
+counts at the cells' shapes."""
 import json
 import math
 
 import pytest
 
 from bench import counts, harness
+from bench.reference import minimind_moe
 
 
 def _cfg(name):
@@ -13,9 +15,9 @@ def _cfg(name):
 
 def test_active_matmul_params():
     # per layer: attention 4 d^2, (k + 1 shared) x 3 d f, router d m; then the tied head d V
-    assert counts.active_matmul_params(_cfg("minimind-moe-16e")) == 8 * (
+    assert minimind_moe.active_matmul_params(_cfg("minimind-moe-16e")) == 8 * (
         4 * 512 * 512 + 5 * 3 * 512 * 1408 + 512 * 16) + 512 * 6400 == 98_238_464
-    assert counts.active_matmul_params(_cfg("minimind-moe-64e")) == 8 * (
+    assert minimind_moe.active_matmul_params(_cfg("minimind-moe-64e")) == 8 * (
         4 * 512 * 512 + 9 * 3 * 512 * 1408 + 512 * 64) + 512 * 6400 == 167_641_088
 
 
@@ -25,7 +27,7 @@ def test_active_matmul_params():
     ("minimind-moe-64e", 512, 6 * 167_641_088 + 6 * 8 * 512 * 512),
 ])
 def test_model_flops_per_token(name, seq, per_token):
-    assert counts.model_flops_per_token(_cfg(name), seq) == per_token
+    assert minimind_moe.model_flops_per_token(_cfg(name), seq) == per_token
 
 
 def test_capacity_at_the_cells():

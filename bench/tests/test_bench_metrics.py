@@ -4,6 +4,7 @@ import pytest
 import torch
 
 from bench import counts, harness
+from bench.reference import minimind_moe
 from bench.metrics import (adamw_ms_per_step, avg_maxvio, bip_admm_roofline, device_idle_share,
                            launches_per_step, moe_dispatch_ms_per_step, moe_gemm_roofline,
                            router_ms_per_step, step_mfu)
@@ -16,7 +17,8 @@ def _rec(kernels=(), span_s=None, busy_s=0.5):
     loads = [torch.full((8, 16), 4096)] * 2
     return {"steps": 2, "window_s": 1.0, "busy_s": busy_s, "kernels": list(kernels),
             "span_s": span_s or {}, "loads": loads, "max_vio": [torch.tensor([0.1, 0.3]), torch.tensor([0.2])],
-            "config": CFG, "mix": MIX, "tokens_per_step": 16384}
+            "config": CFG, "reference": "bench.reference.minimind_moe", "mix": MIX,
+            "tokens_per_step": 16384}
 
 
 def test_readers_on_a_record():
@@ -34,8 +36,10 @@ def test_readers_on_a_record():
     layer = counts.expert_ffn_bound_s([4096] * 16, 5120, 512, 1408)
     assert moe_gemm_roofline.read(rec) == pytest.approx(100 * 2 * 8 * layer / 0.02)
     assert bip_admm_roofline.read(rec) == pytest.approx(100 * 2 * 8 * counts.k3_update_bound_s(16384, 16, 4, 4) / 0.004)
-    flops = counts.model_flops_per_token(CFG, 512) * 16384 * 2
+    flops = minimind_moe.model_flops_per_token(CFG, 512) * 16384 * 2
     assert step_mfu.read(rec) == pytest.approx(100 * flops / counts.PEAK_BF16_FLOPS)
+    # the reading before the count moved into the reference, to the bit
+    assert step_mfu.read(rec) == 1.994619291256623
 
 
 def test_readers_return_none_without_their_records():
