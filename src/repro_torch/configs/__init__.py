@@ -2,7 +2,10 @@
 and the paper's two minimind MoE models, with the reference's ids and CLI
 spellings (src/repro/configs/__init__.py).
 
-`get(name)` accepts the module id or the CLI spelling with dashes;
+`get(name)` accepts the module id or the CLI spelling with dashes, and also
+resolves the port's own configurations (PORT_IDS, which the reference has
+no counterpart of and which ARCH_IDS, CLI_ALIASES and `all_configs()`
+leave out);
 `reduced_for_smoke(name, **overrides)` applies the reference's `reduced()`;
 `all_configs()` maps every id to its config.
 """
@@ -33,11 +36,15 @@ ARCH_IDS = [
 CLI_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 CLI_ALIASES.update({"phi4-mini-3.8b": "phi4_mini_3_8b", "stablelm-1.6b": "stablelm_1_6b"})
 
+# the port's own configurations, by module id and by their published name
+PORT_IDS = ["granite_4_0_h_small"]
+_PORT_ALIASES = {"granite-4.0-h-small": "granite_4_0_h_small"}
+
 
 def get(name: str) -> ModelConfig:
-    key = CLI_ALIASES.get(name, name)
-    if key not in ARCH_IDS:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(CLI_ALIASES)}")
+    key = CLI_ALIASES.get(name, _PORT_ALIASES.get(name, name))
+    if key not in ARCH_IDS and key not in PORT_IDS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(CLI_ALIASES) + sorted(_PORT_ALIASES)}")
     return importlib.import_module(f"repro_torch.configs.{key}").CONFIG
 
 
@@ -53,6 +60,7 @@ __all__ = [
     "ARCH_IDS",
     "CLI_ALIASES",
     "ModelConfig",
+    "PORT_IDS",
     "RoutingSpec",
     "SSMSpec",
     "all_configs",

@@ -2,7 +2,10 @@
 
 A copy of the reference schema (src/repro/configs/base.py) with torch dtypes
 in place of jnp ones. Field names, defaults and `reduced()` are the
-reference's, so a config built here describes the same model there.
+reference's, so a config built here describes the same model there. The
+fields marked port-only (NoPE, the attention scale, the multipliers, the
+shared MLP's width, the experts held) have no counterpart there; at their
+defaults the model is the reference's.
 """
 from __future__ import annotations
 
@@ -107,6 +110,13 @@ class ModelConfig:
     rope_local_theta: float = 0.0
     qk_norm: bool = False
     post_block_norms: bool = False
+    # port-only fields (the reference's schema has none of them); each
+    # default leaves the model, and the operations it issues, as they were
+    nope: bool = False              # attention without RoPE (NoPE)
+    attn_scale: float = 0.0         # softmax scale of the scores; 0 -> 1/sqrt(head_dim)
+    embedding_multiplier: float = 1.0   # the embedded tokens times this
+    residual_multiplier: float = 1.0    # each block's output times this before its residual add
+    logits_scaling: float = 1.0     # the logits divided by this
 
     # MoE
     routing: RoutingSpec = RoutingSpec()
@@ -114,6 +124,8 @@ class ModelConfig:
     moe_pattern: Tuple[bool, ...] = (True,)
     dense_residual: bool = False
     n_shared_experts: int = 0
+    shared_d_ff: int = 0            # port-only: the shared MLP's width; 0 -> moe_d_ff * n_shared_experts
+    experts_held: int = 0           # port-only: experts 0 .. experts_held - 1 live here; 0 -> all
 
     # SSM / hybrid
     ssm: SSMSpec = SSMSpec()
@@ -148,8 +160,17 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.routing.n_experts > 0
 
+    @property
+    def n_experts_held(self) -> int:
+        """The experts whose weights this device holds (and computes): the
+        first `experts_held` of the router's n_experts, or all of them."""
+        return self.experts_held or self.routing.n_experts
+
     def layer_kinds(self) -> Tuple[Tuple[str, str], ...]:
-        """Per-layer (mixer_kind, ffn_kind) sequence (see the reference)."""
+        """Per-layer (mixer_kind, ffn_kind) sequence (see the reference).
+        Outside the ssm and hybrid families a 'mamba' entry of attn_pattern
+        makes a mamba mixer that carries the layer's FFN (a port-only kind:
+        granite-4.0-h's ('mamba', 'moe'))."""
         kinds = []
         for i in range(self.n_layers):
             if self.family in ("ssm", "hybrid"):
@@ -180,6 +201,8 @@ class ModelConfig:
             raise ValueError("local attention needs window_size")
         if self.remat not in ("none", "block"):  # any other value would train without remat
             raise ValueError(f"remat must be 'none' or 'block', got {self.remat!r}")
+        if not 0 <= self.experts_held <= self.routing.n_experts:
+            raise ValueError(f"experts_held {self.experts_held} is not in 0..{self.routing.n_experts}")
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

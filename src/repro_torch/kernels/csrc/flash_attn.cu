@@ -9,8 +9,10 @@
 // scale, mask, softmax, mask, bf16 cast, PV einsum), scores the masked half
 // above the diagonal, and keeps 6 bytes a score for its backward.
 //
-//   flash_attn_fwd   o = softmax(q k^T / sqrt(hd), causal) v, and the fp32
-//                    log-sum-exp of every row (for the backward)
+//   flash_attn_fwd   o = softmax(scale * q k^T, causal) v, and the fp32
+//                    log-sum-exp of every row (for the backward); the
+//                    caller gives the scale (1/sqrt(hd) unless the model
+//                    sets another)
 //   flash_attn_bwd   delta = rowsum(do * o) (a pre-pass), then dk and dv over
 //                    key tiles, then dq over query tiles: no atomics, so the
 //                    gradients are the same from run to run
@@ -25,8 +27,8 @@
 //
 // Numerics (the contract of the plain path, no lower precision): products
 // in bf16 on the tensor cores into fp32 accumulators; logits stay fp32 from
-// the accumulator (the plain path rounds them to bf16 first), scaled by
-// 1/sqrt(hd); softmax, running max and sums in fp32; P rounded to bf16
+// the accumulator (the plain path rounds them to bf16 first), times the
+// scale; softmax, running max and sums in fp32; P rounded to bf16
 // before PV, as `_attend` rounds its weights before its PV einsum; dP and
 // dS in fp32, dS rounded to bf16 before dQ = dS K and dK = dS^T Q.
 //

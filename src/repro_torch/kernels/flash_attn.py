@@ -1,6 +1,6 @@
 """K4: fused causal attention, a hand-written CUDA kernel and its plain version.
 
-    o = softmax(q k^T / sqrt(hd), causal) v
+    o = softmax(scale * q k^T, causal) v,    scale 1/sqrt(hd) unless given
 
 q (B, S, H, hd), k and v (B, S, KV, hd) with H a multiple of KV (GQA: query
 head h reads kv head h // (H // KV)); o (B, S, H, hd) in q's dtype. The
@@ -64,15 +64,16 @@ def build() -> ctypes.CDLL:
 # ------------------------------------------------------------- plain version
 
 
-def flash_attention_plain(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_plain(q, k, v, scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse): the causal softmax over the whole sequence with fp32 scores
-    scaled by 1/sqrt(hd), the weights rounded to q's dtype before the PV
-    einsum (as models/common.py `_attend` rounds them), and the fp32
-    log-sum-exp of each row (B, H, S)."""
+    times `scale` (None: over sqrt(hd)), the weights rounded to q's dtype
+    before the PV einsum (as models/common.py `_attend` rounds them), and
+    the fp32 log-sum-exp of each row (B, H, S)."""
     s, groups = q.shape[1], q.shape[2] // k.shape[2]
     kq = torch.repeat_interleave(k, groups, dim=2)
     vq = torch.repeat_interleave(v, groups, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kq.float()) / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kq.float())
+    logits = logits / math.sqrt(q.shape[-1]) if scale is None else logits * scale
     causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
     logits = logits.masked_fill(~causal, float("-inf"))
     w = torch.softmax(logits, dim=-1)
@@ -123,10 +124,15 @@ def _launch_args(t):
     return (t.data_ptr(), *t.stride()[:3])
 
 
-def _forward(q, k, v):
+def _scale(d: int, scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
+
+
+def _forward(q, k, v, scale: Optional[float] = None):
     """The forward kernel on checked CUDA tensors: (o, lse) with lse (B, H,
     S rounded up to TILE) fp32, its first S columns the rows' log-sum-exp
-    (which the tests and chip_smoke.py read here)."""
+    (which the tests and chip_smoke.py read here); the scores times
+    `scale` (None: 1/sqrt(hd))."""
     b, s, h, d = q.shape
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, -(-s // TILE) * TILE), dtype=torch.float32, device=q.device)
@@ -134,14 +140,14 @@ def _forward(q, k, v):
     with torch.cuda.device(q.device):
         rc = lib.flash_attn_fwd(
             d, *_launch_args(q), *_launch_args(k), *_launch_args(v), *_launch_args(o), lse.data_ptr(),
-            b, s, h, k.shape[2], 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+            b, s, h, k.shape[2], _scale(d, scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     nvcc.raise_on(rc, "flash_attention", _RC)
     flash_attention.launches += 1
     return o, lse
 
 
-def _backward(q, k, v, o, lse, do):
+def _backward(q, k, v, o, lse, do, scale: Optional[float] = None):
     b, s, h, d = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
@@ -152,7 +158,7 @@ def _backward(q, k, v, o, lse, do):
         rc = lib.flash_attn_bwd(
             d, *_launch_args(q), *_launch_args(k), *_launch_args(v), *_launch_args(o), *_launch_args(do),
             lse.data_ptr(), delta.data_ptr(), *_launch_args(dq), *_launch_args(dk), *_launch_args(dv),
-            b, s, h, k.shape[2], 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+            b, s, h, k.shape[2], _scale(d, scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     nvcc.raise_on(rc, "flash_attention backward", _RC)
     flash_attention.bwd_launches += 1
@@ -161,9 +167,10 @@ def _backward(q, k, v, o, lse, do):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v):
-        o, lse = _forward(q, k, v)
+    def forward(ctx, q, k, v, scale):
+        o, lse = _forward(q, k, v, scale)
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
         return o
 
     @staticmethod
@@ -172,18 +179,19 @@ class _FlashAttention(torch.autograd.Function):
         do = do.to(q.dtype)
         if not _on_grain(do):  # an expanded or permuted gradient: read a copy
             do = do.contiguous()
-        return _backward(q, k, v, o, lse, do)
+        return (*_backward(q, k, v, o, lse, do, ctx.scale), None)
 
 
-def flash_attention(q, k, v):
+def flash_attention(q, k, v, scale: Optional[float] = None):
     """Causal attention of q (B, S, H, hd) over k, v (B, S, KV, hd) -> o
-    (B, S, H, hd) in q's dtype, differentiable. CUDA: the K4 kernels (bf16
-    only); CPU: `flash_attention_plain`."""
+    (B, S, H, hd) in q's dtype, differentiable; the scores times `scale`
+    (None: 1/sqrt(hd)). CUDA: the K4 kernels (bf16 only); CPU:
+    `flash_attention_plain`."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)[0]
+        return flash_attention_plain(q, k, v, scale)[0]
     _check_cuda(q, k, v)
-    return _FlashAttention.apply(q, k, v)
+    return _FlashAttention.apply(q, k, v, scale)
 
 
 flash_attention.launches = 0

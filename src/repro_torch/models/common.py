@@ -127,12 +127,14 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def _attn_weights(q: Tensor, k: Tensor, mask: Tensor, softcap: float) -> Tensor:
-    """q (B,Sq,H,D), k (B,Sk,KV,D), mask (B,1|H,Sq,Sk) -> (B,H,Sq,Sk) fp32."""
+def _attn_weights(q: Tensor, k: Tensor, mask: Tensor, softcap: float,
+                  scale: Optional[float] = None) -> Tensor:
+    """q (B,Sq,H,D), k (B,Sk,KV,D), mask (B,1|H,Sq,Sk) -> (B,H,Sq,Sk) fp32;
+    the scores times `scale` (None: over sqrt(D))."""
     groups = q.shape[2] // k.shape[2]
     kq = torch.repeat_interleave(k, groups, dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, kq).float()
-    logits = logits / math.sqrt(q.shape[-1])
+    logits = logits / math.sqrt(q.shape[-1]) if scale is None else logits * scale
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     logits = torch.where(mask, logits, NEG_INF)
@@ -141,8 +143,8 @@ def _attn_weights(q: Tensor, k: Tensor, mask: Tensor, softcap: float) -> Tensor:
     return torch.where(mask.any(dim=-1, keepdim=True), w, 0.0)
 
 
-def _attend(q, k, v, mask, softcap: float, compute_dtype) -> Tensor:
-    w = _attn_weights(q, k, mask, softcap)
+def _attend(q, k, v, mask, softcap: float, compute_dtype, scale: Optional[float] = None) -> Tensor:
+    w = _attn_weights(q, k, mask, softcap, scale)
     groups = q.shape[2] // v.shape[2]
     vq = torch.repeat_interleave(v, groups, dim=2)
     return torch.einsum("bhqk,bkhd->bqhd", w.to(compute_dtype), vq)
@@ -261,7 +263,9 @@ def attention(
 
     `positions` None means the row index (the same `arange` is built for
     RoPE); where `uses_fused_attention` holds, the scores are one K4 call
-    on q, k and v as they lie instead of the chunk loop.
+    on q, k and v as they lie instead of the chunk loop. cfg.nope leaves q
+    and k unrotated; cfg.attn_scale, where set, scales the scores in place
+    of 1/sqrt(head_dim), on either path.
     """
     s = x.shape[1]
     cd = cfg.compute_dtype
@@ -283,22 +287,26 @@ def attention(
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.rms_norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.rms_norm_eps)
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
+    if not cfg.nope:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+    scale = cfg.attn_scale or None
     if fused:
-        return torch.einsum("bshk,hkd->bsd", flash_attn.flash_attention(q, k, v), wo)
+        return torch.einsum("bshk,hkd->bsd", flash_attn.flash_attention(q, k, v, scale=scale), wo)
 
     y = attend_chunked(q, k, v, positions, segments, causal=causal, window=window,
-                       softcap=cfg.attn_logit_softcap, chunk=min(cfg.attn_chunk, s), compute_dtype=cd)
+                       softcap=cfg.attn_logit_softcap, chunk=min(cfg.attn_chunk, s), compute_dtype=cd,
+                       scale=scale)
     return torch.einsum("bshk,hkd->bsd", y, wo)
 
 
 def attend_chunked(q, k, v, positions, segments, *, causal: bool, window: int, softcap: float,
-                   chunk: int, compute_dtype) -> Tensor:
+                   chunk: int, compute_dtype, scale: Optional[float] = None) -> Tensor:
     """The plain path of `attention` after RoPE: q (B,S,H,D) in chunks of
     `chunk` queries (the query axis padded to a chunk multiple with
     position -1) against all of k, v (B,S,KV,D), masked by `positions`
-    (1|B, S), `window` and `segments` -> (B,S,H,D)."""
+    (1|B, S), `window` and `segments`, the scores times `scale` (None:
+    over sqrt(D)) -> (B,S,H,D)."""
     b, s = q.shape[:2]
     pad = (-s) % chunk
     qpos = positions.expand(b, s)
@@ -320,7 +328,7 @@ def attend_chunked(q, k, v, positions, segments, *, causal: bool, window: int, s
         if segq is not None:
             si = segq[:, c0:c0 + chunk]
             mask = mask & (si[:, :, None] == segments[:, None, :])[:, None]
-        ys.append(_attend(qi, k, v, mask, softcap, compute_dtype))
+        ys.append(_attend(qi, k, v, mask, softcap, compute_dtype, scale))
     return torch.cat(ys, dim=1)[:, :s]
 
 
@@ -628,15 +636,22 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def embed(params: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    return gather_rows(cast_weight(params["tok"], cfg.compute_dtype), tokens)
+    """The tokens' rows of the table in the compute dtype, times
+    cfg.embedding_multiplier (no product where it is 1)."""
+    x = gather_rows(cast_weight(params["tok"], cfg.compute_dtype), tokens)
+    return x if cfg.embedding_multiplier == 1 else x * cfg.embedding_multiplier
 
 
 def unembed(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """fp32 logits, over cfg.logits_scaling (no division where it is 1),
+    then soft-capped where the config caps them."""
     if cfg.tie_embeddings:
         logits = torch.einsum("...d,vd->...v", x, cast_weight(params["tok"], cfg.compute_dtype))
     else:
         logits = torch.einsum("...d,dv->...v", x, cast_weight(params["unembed"], cfg.compute_dtype))
     logits = logits.float()
+    if cfg.logits_scaling != 1:
+        logits = logits / cfg.logits_scaling
     if cfg.final_logit_softcap > 0:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives
 from repro_torch.models.common import _randn, cast_weight, cast_weights
+from repro_torch.telemetry.trace import layer_span
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -220,14 +221,17 @@ def _ssd_inputs(xbc: Tensor, dt: Tensor, params: Params, dm: Dict[str, int]):
 
 
 def mamba_block(params: Params, xres: Tensor, cfg: ModelConfig) -> Tensor:
-    """Full-sequence mamba2 mixer. xres: (B, S, d) (already normed)."""
+    """Full-sequence mamba2 mixer. xres: (B, S, d) (already normed). The
+    SSD core runs as the layer span 'mamba/ssd' (its backward under
+    'bwd/mamba/ssd'; telemetry/trace.py)."""
     dm = dims(cfg)
     cd = cfg.compute_dtype
     zxbcdt = torch.einsum("bsd,de->bse", xres, cast_weight(params["in_proj"], cd))
     z, xbc, dt = _split_proj(zxbcdt, dm)
     xbc = F.silu(_causal_conv(xbc, *cast_weights(cd, params["conv_w"], params["conv_b"])))
     xs, bs, cs, dt = _ssd_inputs(xbc, dt, params, dm)
-    y, _ = ssd_chunked(xs, dt, params["A_log"], bs, cs, params["D"], cfg.ssm.chunk_size)
+    y, _ = layer_span("mamba/ssd", ssd_chunked, xs, dt, params["A_log"], bs, cs, params["D"],
+                      cfg.ssm.chunk_size)
     bsz, s = xres.shape[:2]
     y = _gated_norm(y.reshape(bsz, s, dm["d_inner"]), z, params["norm_scale"], cfg.rms_norm_eps)
     return torch.einsum("bse,ed->bsd", y, cast_weight(params["out_proj"], cd))

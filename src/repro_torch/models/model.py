@@ -285,10 +285,10 @@ class Model:
                                  batch)
         enc_out = self._encode(params, batch)
         segments = batch.get("segments") if n_prefix == 0 else None
-        if segments is not None and cfg.family in ("ssm", "hybrid"):
+        if segments is not None and any(k.startswith("mamba") for k, _ in cfg.layer_kinds()):
             raise ValueError(
                 "segment-masked packing (pack_nocross) is attention-only; "
-                f"{cfg.family} architectures leak document state through the "
+                f"{cfg.name}'s mamba layers leak document state through the "
                 "mamba recurrence: use pack_mode='pack' or 'pad'"
             )
         # positions None: the row index, which attention builds itself and
@@ -369,6 +369,10 @@ class Model:
     def _build_cache(self, params: Params, bsz: int, seq_len: int, enc_out) -> Params:
         cfg, dev = self.cfg, self.device
         cd = cfg.compute_dtype
+        if cfg.nope or cfg.attn_scale or cfg.residual_multiplier != 1 or cfg.experts_held:
+            raise NotImplementedError(
+                f"serving {cfg.name}: the cached path has no NoPE, attention scale, residual "
+                "multiplier or held share of experts; the port trains such a model only")
         layers = []
         for (mixer, _), lp in zip(cfg.layer_kinds(), params["stack"]["layers"]):
             if mixer in ("global", "local"):

@@ -61,15 +61,17 @@ def expert_capacity(n_tokens: int, cfg: ModelConfig) -> int:
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """The router over all n_experts; the weights of the experts held here
+    (cfg.n_experts_held, all of them unless the config says fewer)."""
     d = cfg.d_model
     f = cfg.moe_d_ff or cfg.d_ff
-    m = cfg.routing.n_experts
+    m, held = cfg.routing.n_experts, cfg.n_experts_held
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
     return {
         "w_router": _randn(gen, (d, m), s_in, torch.float32),
-        "w_gate": _randn(gen, (m, d, f), s_in, cfg.param_dtype),
-        "w_up": _randn(gen, (m, d, f), s_in, cfg.param_dtype),
-        "w_down": _randn(gen, (m, f, d), s_out / math.sqrt(2 * cfg.n_layers), cfg.param_dtype),
+        "w_gate": _randn(gen, (held, d, f), s_in, cfg.param_dtype),
+        "w_up": _randn(gen, (held, d, f), s_in, cfg.param_dtype),
+        "w_down": _randn(gen, (held, f, d), s_out / math.sqrt(2 * cfg.n_layers), cfg.param_dtype),
     }
 
 
@@ -94,14 +96,23 @@ def moe_ffn_local(
     router_state: Dict[str, Tensor],
     cfg: ModelConfig,
     token_mask: Optional[Tensor] = None,  # (n,) bool
+    expert_offset: int = 0,
 ) -> Tuple[Tensor, Dict[str, Tensor], Tensor, Dict[str, Tensor]]:
     """Single-device MoE FFN. Returns (y, new_router_state, aux_loss, metrics).
+
+    The router scores all n_experts; the expert weights in `params` are
+    those of experts expert_offset .. expert_offset + E - 1 (E their
+    leading axis: all of them, or the share cfg.experts_held of one device
+    of an expert-parallel deployment, which runs here without its
+    exchange). Only those are packed and computed, and y is their part of
+    the layer's output; the capacity is the whole layer's.
 
     With a token mask the balance metrics count the real tokens only: the
     load is the dispatch plan's segment counts (masked rows excluded).
     """
     n, d = x.shape
     m = cfg.routing.n_experts
+    held = params["w_gate"].shape[0]
     cap = expert_capacity(n, cfg)
     rcfg = router_config(cfg)
 
@@ -109,11 +120,11 @@ def moe_ffn_local(
     out = route(logits, router_state, rcfg, token_mask=token_mask)
     with named_span("moe/dispatch"):
         plan = make_dispatch_plan(out.expert_index, m, cap, token_mask)
-        buf = plan.pack(x)  # (m, cap, d)
+        buf = plan.pack(x, expert_offset=expert_offset, n_local=held)  # (held, cap, d)
     with named_span("moe/gemm"):
         y = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"], buf, cfg)
     with named_span("moe/combine"):
-        y_tok = plan.combine(y, out.combine_weights)
+        y_tok = plan.combine(y, out.combine_weights, expert_offset=expert_offset)
 
     mets = out.metrics
     if token_mask is not None:
@@ -130,6 +141,9 @@ def moe_ffn(params, x, router_state, cfg, mesh_ctx=None, token_mask=None):
     On a mesh, `x` and `token_mask` are this rank's rows of the data-split
     batch (mesh_ctx.tokens_sharded) or the whole replicated batch."""
     if mesh_ctx is not None and mesh_ctx.use_ep:
+        if cfg.n_experts_held != cfg.routing.n_experts:
+            raise ValueError("experts_held is one device's share of a layer; on a mesh the "
+                             "expert-parallel paths split the experts themselves")
         impl_name = cfg.routing.moe_impl
         if impl_name == "auto":
             impl_name = "ep2ds"

@@ -12,8 +12,12 @@ Block structure (pre-norm residual):
                        x += [post_norm](ffn(ffn_norm(x)))
                        ffn in {dense, moe (+ dense residual mlp) (+ shared mlp)}
     mamba layers:      x += mamba(pre_norm(x))
+                       x += ffn(ffn_norm(x))    (where the layer kind has one:
+                                                 granite-4.0-h's ('mamba', 'moe'))
     'mamba+shared' then applies the weight-SHARED (attn + mlp) block
     (zamba2), whose one set of weights is params['shared'].
+Each block's output is scaled by cfg.residual_multiplier before its add
+(granite's 0.22; at 1 no product is issued).
 
 `apply_layer` / `apply_stack` run the training forward over whole
 sequences; MoE layers thread their router state and return their metrics,
@@ -86,10 +90,14 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer_kind: str, ffn_kind
         if cfg.dense_residual:
             p["mlp"] = common.init_mlp(gen, cfg)
         if cfg.n_shared_experts:
-            p["shared_mlp"] = common.init_mlp(
-                gen, cfg, d_ff=(cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts
-            )
+            p["shared_mlp"] = common.init_mlp(gen, cfg, d_ff=shared_width(cfg))
     return p
+
+
+def shared_width(cfg: ModelConfig) -> int:
+    """The shared MLP's width: cfg.shared_d_ff where set, else one expert's
+    width per shared expert."""
+    return cfg.shared_d_ff or (cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts
 
 
 def init_shared_block(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -157,23 +165,30 @@ def leaves_of(p: Params, keys: Tuple[str, ...]) -> Params:
     return {k: p[k] for k in keys if k in p}
 
 
+def residual_add(x, h, cfg: ModelConfig):
+    """x + h scaled by cfg.residual_multiplier (no product where it is 1)."""
+    m = cfg.residual_multiplier
+    return x + h if m == 1 else x + h * m
+
+
 def _attention_block(p: Params, x, cfg: ModelConfig, layer_kind: str, positions, segments):
     """x + [post_norm](attention(pre_norm(x)))."""
     h = common.attention(
         p["attn"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps), cfg,
         layer_kind=layer_kind, positions=positions, segments=segments,
     )
-    return x + _maybe_post(p, "post_attn_norm", h, cfg)
+    return residual_add(x, _maybe_post(p, "post_attn_norm", h, cfg), cfg)
 
 
 def _mamba_block(p: Params, x, cfg: ModelConfig):
-    return x + mamba2.mamba_block(p["mamba"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps), cfg)
+    h = mamba2.mamba_block(p["mamba"], common.rmsnorm(p["pre_norm"], x, cfg.rms_norm_eps), cfg)
+    return residual_add(x, h, cfg)
 
 
 def _dense_block(p: Params, x, cfg: ModelConfig):
     """x + [post_norm](mlp(ffn_norm(x)))."""
     h = common.mlp(p["mlp"], common.rmsnorm(p["ffn_norm"], x, cfg.rms_norm_eps), cfg)
-    return x + _maybe_post(p, "post_ffn_norm", h, cfg)
+    return residual_add(x, _maybe_post(p, "post_ffn_norm", h, cfg), cfg)
 
 
 def _moe_block(p: Params, x, router_state, cfg: ModelConfig, mesh_ctx):
@@ -190,7 +205,7 @@ def _moe_block(p: Params, x, router_state, cfg: ModelConfig, mesh_ctx):
     for k in ("dropped_frac_cap1", "q_abs_max", "forecast_err", "forecast_hit"):
         if k in moe_mets:
             mets[k] = moe_mets[k]
-    return x + h, router_state, aux, mets
+    return residual_add(x, h, cfg), router_state, aux, mets
 
 
 def apply_layer(

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 import os
 import threading
 
@@ -862,6 +863,34 @@ def test_flash_attention_matches_plain(cuda_device, shape, monkeypatch):
         assert ok, f"{name}: kernel (max, rel L2) {kernel} vs plain bf16 {plain_bf16}"
     want_lse = plain(q.float(), k.float(), v.float())[1]
     assert _max_err(lse, want_lse) <= 1e-4
+
+
+def test_flash_attention_scale_matches_plain(cuda_device):
+    """K4 at granite-4.0-h-small's attention (B1 S2048, 32 query heads over
+    8 KV heads of 128) with its scale, attention_multiplier 1/128 in place
+    of 1/sqrt(hd): output and dq/dk/dv against the plain version at that
+    scale, by test_flash_attention_matches_plain's rule and reason."""
+    q, k, v, do = _qkv(1, 2048, 32, 8, 128, cuda_device)
+    scale = 1 / 128
+    fn = lambda *t: flash_attn.flash_attention(*t, scale=scale)  # noqa: E731
+    plain = lambda *t: flash_attn.flash_attention_plain(*t, scale)[0]  # noqa: E731
+    got, bf16 = _grads(fn, q, k, v, do), _grads(plain, q, k, v, do)
+    f32 = _grads(plain, q.float(), k.float(), v.float(), do)
+    for name, a, b, ref in zip(("o", "dq", "dk", "dv"), got, bf16, f32):
+        assert bool(torch.isfinite(a).all()), name
+        kernel, plain_bf16, ok = flash_errors(a, b, ref)
+        assert ok, f"{name}: kernel (max, rel L2) {kernel} vs plain bf16 {plain_bf16}"
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES[:2])
+def test_flash_attention_default_scale_is_one_over_sqrt_hd(cuda_device, shape):
+    """No scale given is 1/sqrt(hd) to the bit, the value K4 was launched
+    with before it took a scale, at the s512 and s2048 cells' shapes:
+    output and gradients bit-equal."""
+    q, k, v, do = _qkv(*shape, cuda_device)
+    given = lambda *t: flash_attn.flash_attention(*t, scale=1.0 / math.sqrt(shape[-1]))  # noqa: E731
+    for a, b in zip(_grads(flash_attn.flash_attention, q, k, v, do), _grads(given, q, k, v, do)):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_backward_is_deterministic(cuda_device):

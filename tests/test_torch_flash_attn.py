@@ -32,10 +32,10 @@ def _gqa_cfg():
     return configs.reduced_for_smoke("minimind_moe_16e", n_kv_heads=2, attn_chunk=16)
 
 
-def _attn_and_grads(cfg, params, x):
+def _attn_and_grads(cfg, params, x, fn=None):
     x = x.clone().requires_grad_(True)
     ps = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-    y = common.attention(ps, x, cfg)
+    y = common.attention(ps, x, cfg) if fn is None else fn(ps, x)
     g = torch.randn(y.shape, generator=torch.Generator().manual_seed(7))
     y.backward(g)
     return y.detach(), x.grad, {k: v.grad for k, v in ps.items()}
@@ -76,6 +76,57 @@ def test_plain_log_sum_exp_and_causality():
     torch.testing.assert_close(flash_attn.flash_attention(q, k, v), o)
     # row 0 attends to key 0 alone
     torch.testing.assert_close(o[:, 0], v[:, 0].expand(2, 4, 8))
+
+
+def test_plain_version_takes_a_scale():
+    """Granite's scale (attention_multiplier 1/128, not 1/sqrt(hd)) against a
+    masked softmax written out here; and the default, no scale given, the
+    same bits as the scores over sqrt(hd) that K4's plain version computed
+    before it took a scale."""
+    gen = torch.Generator().manual_seed(2)
+    q = torch.randn(2, 19, 4, 16, generator=gen)
+    k = torch.randn(2, 19, 2, 16, generator=gen)
+    v = torch.randn(2, 19, 2, 16, generator=gen)
+    kq, vq = (torch.repeat_interleave(t, 2, dim=2) for t in (k, v))
+    causal = torch.ones(19, 19, dtype=torch.bool).tril()
+    for scale in (1 / 128, None):
+        o, lse = flash_attn.flash_attention_plain(q, k, v, scale)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, kq)
+        logits = logits / 16**0.5 if scale is None else logits * scale
+        logits = logits.masked_fill(~causal, float("-inf"))
+        want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), vq)
+        if scale is None:
+            assert torch.equal(o, want) and torch.equal(lse, torch.logsumexp(logits, dim=-1))
+        else:
+            torch.testing.assert_close(o, want, rtol=RTOL, atol=ATOL)
+            torch.testing.assert_close(flash_attn.flash_attention(q, k, v, scale=scale), o)
+
+
+def test_nope_and_scale_on_both_attention_paths(monkeypatch):
+    """cfg.nope leaves q and k unrotated and cfg.attn_scale scales the
+    scores, on the chunked path and on the fused branch (its plain version
+    here) alike: both against one NoPE attention written out here, fp32,
+    outputs and the gradients of x and every weight (RTOL as above)."""
+    cfg = dataclasses.replace(_gqa_cfg(), nope=True, attn_scale=1 / 128)
+    gen = torch.Generator().manual_seed(3)
+    params = common.init_attention(gen, cfg)
+    x = torch.randn(2, 37, cfg.d_model, generator=gen)
+
+    def written_out(ps, x):
+        q, k, v = (torch.einsum("bsd,dhk->bshk", x, ps[w]) for w in ("wq", "wk", "wv"))
+        k, v = (torch.repeat_interleave(t, 2, dim=2) for t in (k, v))
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / 128
+        logits = logits.masked_fill(~torch.ones(37, 37, dtype=torch.bool).tril(), float("-inf"))
+        y = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v)
+        return torch.einsum("bshk,hkd->bsd", y, ps["wo"])
+
+    want = _attn_and_grads(cfg, params, x, fn=written_out)
+    chunked = _attn_and_grads(cfg, params, x)
+    monkeypatch.setattr(common, "uses_fused_attention", lambda *a, **k: True)
+    fused = _attn_and_grads(cfg, params, x)
+    for got in (chunked, fused):
+        for a, b in [(got[0], want[0]), (got[1], want[1])] + [(got[2][k], want[2][k]) for k in want[2]]:
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=RTOL * float(b.abs().max()))
 
 
 def test_wrapper_refuses_mismatched_operands():
@@ -139,6 +190,7 @@ def test_rule_for_the_families():
     assert configs.get("paligemma_3b").resolved_head_dim == 256 and not _rule(configs.get("paligemma_3b"))
     local = dataclasses.replace(configs.get("minimind_moe_16e"), window_size=256)
     assert _rule(local, layer_kind="global") and not _rule(local, layer_kind="local")
+    assert _rule(configs.get("granite-4.0-h-small"))  # NoPE, hd 128, its own scale
 
 
 def test_launch_counters_reset():
