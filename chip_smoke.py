@@ -282,6 +282,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      scaled_dot_product_attention's flash path as a yardstick (library_ms;
      the port never calls it). Phases 8, 10 and 15 hold the training
      steps to their K4 launches, and the records' launches are theirs.
+ 20. (run right after phase 19, while the card's memory is free) K5,
+     AdamW's step as one multi-tensor kernel pair (kernels/adamw_step.py),
+     at the benchmark cells' leaf sets (K5_CELLS: minimind-moe-16e's 106
+     leaves, 0.306 B parameters, which both 16e cells train; 64e's 106,
+     1.137 B; the granite cell's 168, 2.055 B; fp32 state, seeded values):
+     the norm within 1e-6 relative of the plain global norm and the same
+     bits on a repeat, the update bit-equal to the plain sliced path on the
+     same gnorm (params and both moments), then the ms of the whole step
+     (norm and update), of each part, of the plain path and of
+     torch._fused_adamw_ (library_ms, a yardstick the port never calls;
+     no clipping) by CUDA events, beside the bound (32 B a parameter at
+     3.35 TB/s) and the launches of one step. Phases 8 and 10 hold the
+     training steps to K5's launches a step and every parameter updated
+     once a step, and the records' launches are theirs.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}. It needs no network and starts no process
 that outlives it (nvcc and nvidia-smi run to completion; phase 17's ranks
@@ -550,9 +564,9 @@ SPAN_NAMES = {"train/fwd_bwd", "train/apply", "router/score_adjust", "router/sel
 
 
 # the kernels by profiler name: the bf16 GEMM's instantiations by template
-# argument GATED, and the fused dual update
+# argument GATED, the fused dual update, and AdamW's three kernels
 KERNELS = {"K1": "wgmma_gemm_kernel<true", "K2": "wgmma_gemm_kernel<false",
-           "K3": "bip_dual_update_kernel"}
+           "K3": "bip_dual_update_kernel", "K5": "k5_"}
 
 
 def summarize_trace(torch, prof, label, n_steps, wall_us):
@@ -887,11 +901,13 @@ def train_full_width(torch, tcfg, n_steps, modules):
     tmodel = Model(tcfg, device="cuda")
     state = init_train_state(tmodel, 0, from_model_config(tcfg))
     stream = SyntheticBatchStream(tcfg, TRAIN_BATCH, TRAIN_SEQ, n_steps, device="cuda")
-    from repro_torch.kernels import flash_attn
+    from repro_torch.kernels import adamw_step, flash_attn
+    from repro_torch.optim.adamw import tree_leaves
 
     moe_gemm.reset_launch_counts()  # count only the main path's launches
     bip_admm.reset_launch_counts()
     flash_attn.reset_launch_counts()
+    adamw_step.reset_launch_counts()
     t_run = time.perf_counter()
     state, log = train_loop(tmodel, stream, lr=1e-3, warmup_steps=5, total_steps=n_steps, state=state)
     train_wall = time.perf_counter() - t_run
@@ -902,11 +918,18 @@ def train_full_width(torch, tcfg, n_steps, modules):
         "bip_admm_iteration": bip_admm.bip_admm_iteration.launches,
         "flash_attention": flash_attn.flash_attention.launches,
         "flash_attention_bwd": flash_attn.flash_attention.bwd_launches,
+        "adamw_norm": adamw_step.global_norm.launches,
+        "adamw_update": adamw_step.adamw_step.launches,
+        "adamw_elements": adamw_step.adamw_step.elements,
     }
     n_moe = sum(ffn == "moe" for _, ffn in tcfg.layer_kinds())
+    leaves = tree_leaves(state.params)
+    k5_norm, k5_update = k5_per_step(leaves)
     per_step = {"grouped_gated_ffn_in": n_moe, "grouped_matmul": n_moe * (1 + 8),
                 "bip_dual_update": n_moe, "bip_admm_iteration": 0,
-                "flash_attention": tcfg.n_layers, "flash_attention_bwd": tcfg.n_layers}
+                "flash_attention": tcfg.n_layers, "flash_attention_bwd": tcfg.n_layers,
+                "adamw_norm": k5_norm, "adamw_update": k5_update,
+                "adamw_elements": sum(t.numel() for t in leaves)}
     summ = log.summary()
     losses = log.losses
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / summ["mean_step_time"]
@@ -926,7 +949,8 @@ def train_full_width(torch, tcfg, n_steps, modules):
     print(f"  kernel launches in this run: {launches}; per step "
           f"{ {k: v / n_steps for k, v in launches.items()} } "
           f"(expected {per_step}: K1 1, K2 1 + 8 backward and K3 1 (the whole dual update) "
-          f"per MoE layer, K4 1 forward and 1 backward per layer)")
+          f"per MoE layer, K4 1 forward and 1 backward per layer, K5's norm and update launches, "
+          f"every parameter updated once)")
     for name, want in per_step.items():
         if launches[name] != want * n_steps:
             raise AssertionError(f"{name}: {launches[name]} launches in training, "
@@ -1095,6 +1119,120 @@ def check_k4(torch, flash_attn, common, gen):
                 "library_ms": ms[f"{tag} library"],
             })
         del q, k, v, do, leaves, tleaves
+        torch.cuda.empty_cache()
+    return records
+
+
+# the benchmark cells whose leaf sets K5 is checked and timed at
+# (train-m16e-bip-s2048 trains train-m16e-bip-s512's)
+K5_CELLS = ("train-m16e-bip-s512", "train-m64e-bip-s512", "train-granite-h-small-bip-s2048")
+K5_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, clip_norm=1.0, lr=5e-4)
+
+
+def k5_leaves(cell_name):
+    """[(shape, dtype, decayed)] of a benchmark cell's params in tree_leaves
+    order, from meta tensors (bench/harness.py resolves the cell's files)."""
+    from bench import harness
+    from repro_torch.convert import decay_mask
+    from repro_torch.models.model import abstract_params
+    from repro_torch.optim.adamw import tree_paths
+
+    cell = harness.resolve(cell_name)
+    params = abstract_params(harness.port_config(cell.config, cell.mix))
+    decay = decay_mask(params)
+    return [(tuple(t.shape), t.dtype, decay[path]) for path, t in tree_paths(params)]
+
+
+def k5_per_step(leaves):
+    """K5's launches in one step over `leaves` (tree_leaves order): (norm,
+    update), the norm one a chunk and one to finish, the update one a chunk."""
+    from repro_torch.kernels import adamw_step
+
+    chunks = len(adamw_step.launch_plan([t.numel() for t in leaves], [t.dtype for t in leaves]))
+    return chunks + 1, chunks
+
+
+def check_k5(torch, adamw_step, nvcc, gen):
+    """Phase 20 (see the module doc). Returns {cell: its kernel record},
+    whose `launches` main fills from the training phases."""
+    print("[k5] AdamW's step (kernels/adamw_step.py, csrc/adamw_step.cu) against its plain version at the "
+          "benchmark cells' leaf sets, fp32 state")
+    records = {}
+    for cell in K5_CELLS:
+        spec = k5_leaves(cell)
+        n = sum(math.prod(shape) for shape, _, _ in spec)
+        p = [torch.randn(shape, device="cuda", generator=gen, dtype=dt) for shape, dt, _ in spec]
+        g = [0.01 * torch.randn(t.shape, device="cuda", generator=gen, dtype=t.dtype) for t in p]
+        mu = [1e-3 * torch.randn(t.shape, device="cuda", generator=gen, dtype=t.dtype) for t in p]
+        nu = [1e-6 * torch.rand(t.shape, device="cuda", generator=gen, dtype=t.dtype) for t in p]
+        decay = [d for _, _, d in spec]
+        gnorm, again = adamw_step.global_norm(g), adamw_step.global_norm(g)
+        want = float(adamw_step.global_norm_plain(g))
+        norm_rel = abs(float(gnorm) - want) / want
+        norm_same = bool(torch.equal(gnorm, again))
+        kw = dict(K5_HYPER, step=1, gnorm=gnorm)
+        copies = [[t.clone() for t in lst] for lst in (p, mu, nu)]
+        adamw_step.adamw_step_plain(copies[0], g, copies[1], copies[2], decay, **kw)
+        adamw_step.reset_launch_counts()
+        adamw_step.adamw_step(p, g, mu, nu, decay, **kw)
+        torch.cuda.synchronize()
+        differ = [(name, i) for name, mine, plain in zip(("p", "mu", "nu"), (p, mu, nu), copies)
+                  for i, (a, b) in enumerate(zip(mine, plain)) if not bool(torch.equal(a, b))]
+        del copies
+        torch.cuda.empty_cache()
+        print(f"  {cell}: {len(p)} leaves, {n} parameters; norm {float(gnorm):.6e} against the plain "
+              f"{want:.6e} (relative {norm_rel:.2e}, tolerance 1e-6), the same bits on a repeat: {norm_same}; "
+              f"update bit-equal to the plain path on the same gnorm: {not differ}")
+        if norm_rel > 1e-6 or not norm_same or differ:
+            raise AssertionError(f"K5 at {cell}: norm {norm_rel:.2e} / repeat {norm_same}, leaves that differ "
+                                 f"from the plain update {differ[:8]}")
+
+        def k5():
+            adamw_step.adamw_step(p, g, mu, nu, decay, **dict(kw, gnorm=adamw_step.global_norm(g)))
+
+        def plain():
+            adamw_step.adamw_step_plain(p, g, mu, nu, decay, **dict(kw, gnorm=adamw_step.global_norm_plain(g)))
+
+        steps = [torch.zeros((), device="cuda") for _ in p]
+
+        def library():
+            torch._fused_adamw_(p, g, mu, nu, [], steps, lr=K5_HYPER["lr"], beta1=K5_HYPER["b1"],
+                                beta2=K5_HYPER["b2"], weight_decay=K5_HYPER["weight_decay"],
+                                eps=K5_HYPER["eps"], amsgrad=False, maximize=False)
+
+        calls = {"k5": k5, "norm": lambda: adamw_step.global_norm(g),
+                 "update": lambda: adamw_step.adamw_step(p, g, mu, nu, decay, **kw),
+                 "plain": plain, "library": library}
+        ms = {name: time_ms(torch, fn, [()], reps=5) for name, fn in calls.items()}
+        b_ms = 1e3 * 32 * n / PEAK_BYTES
+        norm_launches, update_launches = k5_per_step(p)
+        print(f"  {cell}: K5 {ms['k5']:.4f} ms a step (norm {ms['norm']:.4f}, update {ms['update']:.4f}; "
+              f"{norm_launches} + {update_launches} launches), bound {b_ms:.4f} ms (32 B a parameter at 3.35 "
+              f"TB/s: {100 * b_ms / ms['k5']:.1f}% of it), plain {ms['plain']:.4f} ms, torch._fused_adamw_ "
+              f"(library, no clipping) {ms['library']:.4f} ms (CUDA events)")
+        records[cell] = {
+            "name": "adamw_step",
+            "use": f"AdamW's whole step (norm and update) over the leaves of {cell}: {len(p)} leaves, {n} "
+                   f"parameters, fp32 state; {norm_launches} norm and {update_launches} update launches a step; "
+                   "norm_ms / update_ms its parts, plain_ms the sliced plain path, library_ms "
+                   "torch._fused_adamw_ (no clipping; a yardstick, never called by the port), all by CUDA events",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/adamw_step.cu",
+            "replaces": None,
+            "launches": None,
+            "max_abs_err": 0.0,
+            "norm_rel_err": norm_rel,
+            "ms": ms["k5"],
+            "norm_ms": ms["norm"],
+            "update_ms": ms["update"],
+            "plain_ms": ms["plain"],
+            "bound_ms": b_ms,
+            "bound_by": "bytes",
+            "library_ms": ms["library"],
+            "ptxas": [line for line in nvcc.ptxas_report("adamw_step.cu")  # the instantiations fp32 state runs
+                      if "<float, float>" in line or "<float>" in line or "finish" in line],
+        }
+        del p, g, mu, nu, steps, calls
         torch.cuda.empty_cache()
     return records
 
@@ -3822,7 +3960,7 @@ def main() -> int:
     from repro_torch import configs, data, robustness, telemetry
     from repro_torch.core import balancers, ref_bip
     from repro_torch.data import SyntheticBatchStream, make_batches
-    from repro_torch.kernels import bip_admm, flash_attn, moe_gemm, nvcc
+    from repro_torch.kernels import adamw_step, bip_admm, flash_attn, moe_gemm, nvcc
     from repro_torch.kernels import ops as kernel_ops
     from repro_torch.launch import balance_sweep, paper_repro
     from repro_torch.launch import train as launch_train
@@ -3854,10 +3992,10 @@ def main() -> int:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         futures = {name: pool.submit(timed_build, mod.build)
                    for name, mod in (("moe_gemm.cu", moe_gemm), ("bip_admm.cu", bip_admm),
-                                     ("flash_attn.cu", flash_attn))}
+                                     ("flash_attn.cu", flash_attn), ("adamw_step.cu", adamw_step))}
         build_s = {name: f.result() for name, f in futures.items()}
     print(f"[build] nvcc sm_90a, in parallel: "
           + ", ".join(f"{n} {t:.2f} s" for n, t in build_s.items())
@@ -3890,6 +4028,10 @@ def main() -> int:
 
     # -- 19. K4, the fused causal attention, before the phases that train through it
     k4_records = check_k4(torch, flash_attn, common, gen)
+
+    # -- 20. K5, AdamW's step, at the benchmark cells' leaf sets, while the
+    # card's memory is free (granite's check holds ~58 GB)
+    k5_records = check_k5(torch, adamw_step, nvcc, gen)
 
     # -- 3. one full-width MoE layer: kernel path vs plain einsum path
     cfg = configs.get("minimind_moe_16e")
@@ -4293,6 +4435,19 @@ def main() -> int:
             rec["use"] += f"; launches: {where}"
             rec["launches"] = {"fwd": sum(f for f, _ in runs), "bwd": sum(b for _, b in runs)}
             record.append(rec)
+    # K5's launches: the training phases that ran it (phases 8 and 10, the
+    # 16e and 64e leaf sets; the timing loop's own calls not counted)
+    k5_main = {K5_CELLS[0]: (train_launches, f"phase 8 (16e, {TRAIN_STEPS} steps)"),
+               K5_CELLS[1]: (train64_launches, f"phase 10 (64e, {TRAIN64_STEPS} steps)")}
+    for cell, rec in k5_records.items():
+        if cell in k5_main:
+            run, where = k5_main[cell]
+            rec["use"] += f"; launches: {where}, every parameter updated once a step"
+            rec["launches"] = {"norm": run["adamw_norm"], "update": run["adamw_update"],
+                               "elements": run["adamw_elements"]}
+        else:
+            rec["use"] += "; launches: no phase trains this leaf set (the benchmark's cell does)"
+        record.append(rec)
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({

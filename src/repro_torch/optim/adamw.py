@@ -11,10 +11,12 @@ decayed (`convert.decay_mask`).
 Unlike the reference, which returns new trees, `adamw_update` updates the
 params and moments IN PLACE under torch.no_grad() (one copy of the state
 lives on the device) and returns the same trees; `step` is a host integer.
-With `guard` (the guarded train step), every write selects the old value
-where the step is not ok, so a skipped step leaves the state bit-identical.
-A leaf is updated in slices of _SLICE elements, which bounds the update's
-temporaries without changing a bit of its result (the math is elementwise).
+With `guard` (the guarded train step), a step that is not ok leaves the
+params and moments bit-identical.
+
+The norm and the update run in `kernels/adamw_step.py`: on CUDA leaves K5,
+one multi-tensor kernel pair over every leaf at once; on CPU leaves its
+plain version, the same fp32 math leaf by leaf in slices.
 """
 from __future__ import annotations
 
@@ -23,10 +25,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import adamw_step
+from repro_torch.kernels.adamw_step import global_norm
+
 Tensor = torch.Tensor
-# elements per slice of a leaf's update (256 MB of fp32): a 1e9-element
-# embedding would otherwise hold ~6 fp32 temporaries of 4 GB at once
-_SLICE = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,10 +91,6 @@ def adamw_init(params, cfg: AdamWConfig) -> Dict[str, Any]:
     }
 
 
-def global_norm(leaves: List[Tensor]) -> Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
-
-
 @torch.no_grad()
 def adamw_update(
     grads: List[Tensor],
@@ -112,42 +110,24 @@ def adamw_update(
     applies to it (`convert.decay_mask` builds it for the model's params).
 
     `guard` (a device bool scalar) makes the step conditional without a
-    host sync: ok = guard & isfinite(grad_norm), every param and moment
-    write is torch.where(ok, new, old), info gains 'step_ok' (ok) and
+    host sync: ok = guard & isfinite(grad_norm), where ok is false every
+    param and moment keeps its bits, info gains 'step_ok' (ok) and
     `step` is NOT advanced: the caller advances it once it has read ok.
 
     `grad_norm` replaces the norm of `grads` where they are blocks of
     leaves sharded over a mesh (the caller reduces it over the ranks)."""
     step = opt_state["step"] + 1
     p_paths = tree_paths(params)
-    mu_leaves, nu_leaves = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
+    # a gradient autograd hands back transposed (the tied embedding's) is
+    # read from a contiguous copy, as the plain update's reshape reads it
+    grads = [g if g.is_contiguous() else g.contiguous() for g in grads]
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
     ok = None if guard is None else guard & torch.isfinite(gnorm)
-    keep = (lambda new, old: new) if ok is None else (lambda new, old: torch.where(ok, new, old))  # noqa: E731
-    scale = None
-    if cfg.clip_norm > 0:
-        scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
-    b1, b2 = cfg.b1, cfg.b2
-    c1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** float(step)
-    c2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** float(step)
-    c1, c2 = float(c1), float(c2)  # host scalars: fp32 values, no device sync
-    for g, mu, nu, (path, p) in zip(grads, mu_leaves, nu_leaves, p_paths):
-        wd = cfg.weight_decay if decay[path] else 0.0  # matrices of the reference's layout
-        # slice by slice: the same elementwise math, with the fp32
-        # temporaries of one slice live at a time, not of a whole leaf
-        for gs, ps, mus, nus in zip(g.reshape(-1).split(_SLICE), p.view(-1).split(_SLICE),
-                                    mu.view(-1).split(_SLICE), nu.view(-1).split(_SLICE)):
-            if scale is not None:
-                gs = gs * scale.to(gs.dtype)
-            g32 = gs.float()
-            mu_n = b1 * mus.float() + (1 - b1) * g32
-            nu_n = b2 * nus.float() + (1 - b2) * g32 * g32
-            delta = (mu_n / c1) / (torch.sqrt(nu_n / c2) + cfg.eps)
-            if wd > 0:
-                delta = delta + wd * ps.float()
-            ps.copy_(keep(ps.float() - lr * delta, ps))
-            mus.copy_(keep(mu_n, mus))
-            nus.copy_(keep(nu_n, nus))
+    adamw_step.adamw_step(
+        [p for _, p in p_paths], grads, tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"]),
+        [decay[path] for path, _ in p_paths],  # matrices of the reference's layout
+        lr=lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay, clip_norm=cfg.clip_norm,
+        step=step, gnorm=gnorm, ok=ok)
     if ok is None:
         opt_state["step"] = step
         return params, opt_state, {"grad_norm": gnorm, "lr": lr}

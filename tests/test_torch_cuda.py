@@ -26,9 +26,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import make_batches  # noqa: E402
-from repro_torch.kernels import bip_admm, flash_attn, moe_gemm, ops  # noqa: E402
+from repro_torch.kernels import adamw_step, bip_admm, flash_attn, moe_gemm, ops  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
-from repro_torch.optim import constant, from_model_config  # noqa: E402
+from repro_torch.optim import adamw, constant, from_model_config  # noqa: E402
 from repro_torch.serving import ContinuousBatchingEngine  # noqa: E402
 from repro_torch.training import init_train_state, make_train_step  # noqa: E402
 
@@ -370,7 +370,9 @@ def test_backward_uses_at_capacity_320(cuda_device):
 def test_train_steps_launch_the_kernels(cuda_device):
     """Two reduced-width training steps (16 experts top-4, bip T=4,
     use_kernel=True): per MoE layer and step, K1 once, K2 once forward and
-    eight times backward, K3 once (the whole dual update)."""
+    eight times backward, K3 once (the whole dual update); per step K5's
+    norm once a chunk of leaves and once to finish, its update once a chunk,
+    and every parameter through the update."""
     full = configs.get("minimind_moe_16e")
     routing = dataclasses.replace(full.routing, use_kernel=True)
     cfg = configs.reduced_for_smoke("minimind_moe_16e", routing=routing, vocab_size=128)
@@ -380,6 +382,7 @@ def test_train_steps_launch_the_kernels(cuda_device):
     step = make_train_step(model, opt, constant(1e-3))
     moe_gemm.reset_launch_counts()
     bip_admm.reset_launch_counts()
+    adamw_step.reset_launch_counts()
     losses = []
     for batch in make_batches(cfg, 4, 64, 2, device=cuda_device):
         state, mets = step(state, batch)
@@ -389,6 +392,11 @@ def test_train_steps_launch_the_kernels(cuda_device):
     assert moe_gemm.grouped_matmul.launches == n_moe * 9 * steps
     assert bip_admm.bip_dual_update.launches == n_moe * steps
     assert bip_admm.bip_admm_iteration.launches == 0
+    leaves = adamw.tree_leaves(state.params)
+    chunks = len(adamw_step.launch_plan([p.numel() for p in leaves], [p.dtype for p in leaves]))
+    assert adamw_step.global_norm.launches == (chunks + 1) * steps
+    assert adamw_step.adamw_step.launches == chunks * steps
+    assert adamw_step.adamw_step.elements == sum(p.numel() for p in leaves) * steps
     assert all(np.isfinite(losses))
     assert float(mets["max_vio_per_layer"].max()) < 1.0
 
@@ -937,3 +945,140 @@ def test_train_step_launches_k4(cuda_device):
     assert flash_attn.flash_attention.launches == cfg.n_layers
     assert flash_attn.flash_attention.bwd_launches == cfg.n_layers
     assert np.isfinite(float(mets["loss"]))
+
+
+# ------------------------------------------------------- K5: AdamW's step
+
+K5_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def _k5_leaves(dev, dtypes, seed=0):
+    """(params, grads, mus, nus, decay) over leaves of every kind K5 meets:
+    odd and ragged element counts, a tile exactly, a scalar, one leaf above
+    the plain path's slice, a base off the 16-byte grain (the kernel's
+    element-by-element path), decay and no decay; 70 leaves in all, more
+    than one launch takes. `dtypes`: (param, mu, nu); the grads take the
+    param's, as autograd gives them."""
+    pd, md, nd = dtypes
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = [(7,), (4095,), (4096,), (4097,), (3, 5, 11), (), (adamw_step._SLICE + 4099,), (129, 1000)]
+    shapes += [(int(n),) for n in np.random.default_rng(seed).integers(1, 20_000, 70 - len(shapes))]
+
+    def make(shape, dt, scale, off_grain):
+        n = math.prod(shape)
+        flat = torch.empty(n + 1, device=dev, dtype=dt)
+        t = (flat[1:] if off_grain else flat[:n]).view(shape)
+        t.copy_(scale * torch.randn(shape, device=dev, generator=g))
+        return t
+
+    out = [[], [], [], []]
+    for i, shape in enumerate(shapes):
+        off = i == 4  # one leaf whose every array is off the grain
+        out[0].append(make(shape, pd, 1.0, off))
+        out[1].append(make(shape, pd, 0.05, off))
+        out[2].append(make(shape, md, 0.01, off))
+        out[3].append(make(shape, nd, 1e-4, off).abs())
+    decay = [i % 3 != 1 for i in range(len(shapes))]
+    return (*out, decay)
+
+
+def _k5_clone(leaves):
+    return [[t.clone() for t in lst] for lst in leaves[:4]] + [leaves[4]]
+
+
+K5_DTYPES = {"fp32": (torch.float32,) * 3, "bf16": (torch.bfloat16,) * 3,
+             "fp32_bf16_moments": (torch.float32, torch.bfloat16, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("state", list(K5_DTYPES))
+@pytest.mark.parametrize("clip_norm", [1.0, 0.0])
+def test_k5_update_bit_equal_to_plain(cuda_device, state, clip_norm, monkeypatch):
+    """K5's update over 70 leaves (two launches) is bit-equal to the sliced
+    plain path on the same gnorm, params and both moments, in three steps at
+    two gradient scales (clipped and not), fp32 state, bf16 params and
+    moments, fp32 params beside bf16 moments; the plain version is never
+    called on CUDA leaves."""
+    leaves = _k5_leaves(cuda_device, K5_DTYPES[state])
+    mine = _k5_clone(leaves)
+    plain = adamw_step.adamw_step_plain
+
+    def forbidden(*a, **k):
+        raise AssertionError("the plain update ran on CUDA leaves")
+
+    adamw_step.reset_launch_counts()
+    for step, gscale in ((1, 1.0), (2, 1e-3), (3, 1.0)):
+        grads = [gscale * g for g in leaves[1]]
+        gnorm = adamw_step.global_norm_plain(grads)
+        kw = dict(K5_HYPER, lr=1e-3 * step, clip_norm=clip_norm, step=step, gnorm=gnorm)
+        plain(leaves[0], grads, leaves[2], leaves[3], leaves[4], **kw)
+        monkeypatch.setattr(adamw_step, "adamw_step_plain", forbidden)
+        adamw_step.adamw_step(mine[0], grads, mine[2], mine[3], mine[4], **kw)
+        monkeypatch.setattr(adamw_step, "adamw_step_plain", plain)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("params", "mu", "nu"), (leaves[0], leaves[2], leaves[3]), (mine[0], mine[2], mine[3])):
+            differ = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+            assert not differ, f"step {step}: {name} of leaves {differ} differ from the plain path"
+    assert adamw_step.adamw_step.launches == 3 * 2
+    assert adamw_step.adamw_step.elements == 3 * sum(p.numel() for p in leaves[0])
+
+
+@pytest.mark.parametrize("state", ["fp32", "bf16"])
+def test_k5_false_guard_leaves_state_bit_identical(cuda_device, state):
+    """ok false: params and moments keep their bits, whatever gnorm (a NaN
+    one too); ok true: the update as without a guard."""
+    leaves = _k5_leaves(cuda_device, K5_DTYPES[state])
+    before = _k5_clone(leaves)
+    for gnorm in (adamw_step.global_norm_plain(leaves[1]), torch.tensor(float("nan"), device=cuda_device)):
+        adamw_step.adamw_step(*leaves[:4], leaves[4], **K5_HYPER, lr=1e-3, clip_norm=1.0, step=1, gnorm=gnorm,
+                              ok=torch.tensor(False, device=cuda_device))
+    torch.cuda.synchronize()
+    for a, b in zip(sum(leaves[:4], []), sum(before[:4], [])):
+        assert torch.equal(a, b)
+    gnorm = adamw_step.global_norm_plain(leaves[1])
+    guarded = _k5_clone(leaves)
+    adamw_step.adamw_step(*leaves[:4], leaves[4], **K5_HYPER, lr=1e-3, clip_norm=1.0, step=1, gnorm=gnorm)
+    adamw_step.adamw_step(*guarded[:4], guarded[4], **K5_HYPER, lr=1e-3, clip_norm=1.0, step=1, gnorm=gnorm,
+                          ok=torch.tensor(True, device=cuda_device))
+    for a, b in zip(sum(leaves[:4], []), sum(guarded[:4], [])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_norm_matches_global_norm_and_repeats(cuda_device, dtype):
+    """K5's norm over 70 leaves (two chunks) within 1e-6 relative of the
+    plain global_norm, and the same bits on every call; one norm launch a
+    chunk and one to finish."""
+    grads = [g.to(dtype) for g in _k5_leaves(cuda_device, K5_DTYPES["fp32"], seed=1)[1]]
+    want = float(adamw_step.global_norm_plain(grads))
+    adamw_step.reset_launch_counts()
+    first = adamw_step.global_norm(grads)
+    assert adamw_step.global_norm.launches == 2 + 1
+    assert first.dtype == torch.float32 and first.dim() == 0
+    assert abs(float(first) - want) <= 1e-6 * want
+    for _ in range(3):
+        assert torch.equal(adamw_step.global_norm(grads), first)
+
+
+def test_k5_refusals(cuda_device):
+    """Non-contiguous or mixed-device leaves, another dtype, a gnorm or
+    guard elsewhere: refused before any launch."""
+    p = torch.zeros(8, 6, device=cuda_device)
+    kw = dict(K5_HYPER, lr=1e-3, clip_norm=1.0, step=1, gnorm=torch.ones((), device=cuda_device))
+    adamw_step.reset_launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw_step.adamw_step([p.t()], [p.t()], [p.t()], [p.t()], [True], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw_step.global_norm([p.t()])
+    with pytest.raises(ValueError, match="more than one device"):
+        adamw_step.adamw_step([p], [p.cpu()], [p], [p], [True], **kw)
+    with pytest.raises(ValueError, match="more than one device"):
+        adamw_step.global_norm([p, p.cpu()])
+    with pytest.raises(TypeError):
+        adamw_step.adamw_step([p.half()], [p.half()], [p], [p], [True], **kw)
+    with pytest.raises(TypeError, match="gradient"):
+        adamw_step.adamw_step([p], [p.bfloat16()], [p], [p], [True], **kw)
+    with pytest.raises(ValueError, match="gnorm"):
+        adamw_step.adamw_step([p], [p], [p], [p], [True], **dict(kw, gnorm=torch.ones(())))
+    with pytest.raises(ValueError, match="ok"):
+        adamw_step.adamw_step([p], [p], [p], [p], [True], **kw, ok=torch.tensor(True))
+    assert (adamw_step.global_norm.launches, adamw_step.adamw_step.launches) == (0, 0)

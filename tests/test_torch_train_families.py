@@ -47,6 +47,7 @@ from repro.training import loop as jax_loop  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import params_from_numpy, train_state_from_numpy  # noqa: E402
 from repro_torch.data import make_batches  # noqa: E402
+from repro_torch.kernels import adamw_step  # noqa: E402
 from repro_torch.models import Model, stack  # noqa: E402
 from repro_torch.optim import adamw, schedules  # noqa: E402
 from repro_torch.training import init_train_state, make_train_step  # noqa: E402
@@ -221,8 +222,8 @@ def test_train_cli_trains_the_family_on_cpu(arch, tmp_path, capsys):
 
 @pytest.mark.parametrize("moments", ["fp32", "bf16"])
 def test_adamw_slices_are_bitwise_the_whole_update(moments, monkeypatch):
-    """AdamW updates a leaf in slices of adamw._SLICE elements to bound its
-    fp32 temporaries at full width (llama4-scout's 1e9-element embedding);
+    """AdamW's plain version (the CPU path) updates a leaf in slices of
+    adamw_step._SLICE elements to bound its fp32 temporaries at full width (llama4-scout's 1e9-element embedding);
     three guarded steps in slices of 1000 elements are bitwise those in one
     slice, params and both moments, with and without weight decay."""
     dt = torch.float32 if moments == "fp32" else torch.bfloat16
@@ -232,7 +233,7 @@ def test_adamw_slices_are_bitwise_the_whole_update(moments, monkeypatch):
     cfg = adamw.AdamWConfig(mu_dtype=dt, nu_dtype=dt)
     runs = []
     for size in (1 << 26, 1000):
-        monkeypatch.setattr(adamw, "_SLICE", size)
+        monkeypatch.setattr(adamw_step, "_SLICE", size)
         params = adamw.tree_map(torch.clone, base)
         opt = adamw.adamw_init(params, cfg)
         for _ in range(3):
